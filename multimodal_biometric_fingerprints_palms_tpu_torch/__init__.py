@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the fingerprint biometric framework.
+
+Sits beside ``multimodal_biometric_fingerprints_palms_tpu`` (the JAX
+reference) and keeps its module layout and function names. Plain tensor
+code is ordinary PyTorch on an explicit device; the Pallas kernels of the
+JAX package become hand-written CUDA kernels for Hopper (``csrc/``), built
+at first use by ``kernels.build``. A kernel wrapper given a CPU tensor runs
+its plain PyTorch twin; given a CUDA tensor it launches the kernel.
+
+Public layouts match the JAX package: images (..., H, W) float32 in [0, 1],
+masks bool, ``MinutiaeSet`` a NamedTuple of tensors.
+
+Ported so far: the enhance + extract chain (``preprocess_fingerprint`` ->
+``extract_minutiae`` -> ``postprocess_minutiae``) in the configuration the
+JAX package runs with ``use_pallas=False``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,128 @@
+"""CLAHE: kernel A (``csrc/clahe.cu``) and its plain PyTorch twin.
+
+Replaces the TPU kernel ``ops/pallas_kernels.py:clahe_pallas``
+(``_clahe_kernel_v2`` / ``_clahe_kernel``), which built per-tile histograms
+and applied the LUTs as one-hot MXU matmuls. On the card the work is tiny
+(one read of the image, one write, a 256-entry table per tile), so the
+kernel is bound by memory traffic and launch latency: pass 1 builds each
+tile's histogram with shared-memory atomics and turns it into a LUT with
+one thread (the same operation order as the plain version, so the LUT is
+bit-equal); pass 2 blends the four neighbouring LUTs per pixel with
+explicitly rounded float ops (no FMA contraction), matching the plain
+version's arithmetic.
+
+``clahe`` dispatches on the tensor's device: CPU -> ``clahe_plain``,
+CUDA -> ``clahe_cuda``; anything else raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build as _build
+
+NBINS = 256
+
+
+def _clip_limit(clip_limit: float, tile_area: int) -> float:
+    # OpenCV truncates the clip limit to an integer (clahe.cpp)
+    return max(float(int(clip_limit * tile_area / NBINS)), 1.0)
+
+
+def _blend_weights(n: int, tile: int, grid: int, device):
+    """Per-coordinate (lo tile, hi tile, weight of hi tile), OpenCV's
+    convention: tile coordinate = pixel / tile_size - 0.5."""
+    c = torch.arange(n, dtype=torch.float32, device=device) / tile - 0.5
+    fl = torch.floor(c)
+    w1 = torch.clamp(c - fl, 0.0, 1.0)
+    w1 = torch.where(c < 0, torch.zeros_like(w1),
+                     torch.where(c > grid - 1, torch.ones_like(w1), w1))
+    t0 = torch.clamp(fl, 0, grid - 1).to(torch.int64)
+    t1 = torch.clamp(fl + 1, 0, grid - 1).to(torch.int64)
+    return t0, t1, w1
+
+
+def _to_bins(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.int64)
+
+
+def clahe_lut_plain(x: torch.Tensor, clip_limit: float = 2.5,
+                    grid: int = 8) -> torch.Tensor:
+    """Per-tile CLAHE LUTs of (..., H, W) images: (..., grid, grid, 256)
+    float32 integer values in [0, 255]."""
+    lead = x.shape[:-2]
+    h, w = x.shape[-2:]
+    th, tw = h // grid, w // grid
+    area = th * tw
+    v = _to_bins(x.reshape(-1, h, w))
+    tiles = v.reshape(-1, grid, th, grid, tw).transpose(2, 3).reshape(-1, area)
+    hist = torch.zeros((tiles.shape[0], NBINS), dtype=torch.float32,
+                       device=x.device)
+    hist.scatter_add_(1, tiles, torch.ones(tiles.shape, dtype=torch.float32,
+                                           device=x.device))
+    limit = _clip_limit(clip_limit, area)
+    excess = torch.sum(torch.clamp(hist - limit, min=0.0), dim=-1, keepdim=True)
+    hist = torch.clamp(hist, max=limit) + excess / NBINS
+    cdf = torch.cumsum(hist, dim=-1)
+    lut = torch.clamp(torch.round(cdf * ((NBINS - 1.0) / area)), 0, 255)
+    return lut.reshape(lead + (grid, grid, NBINS))
+
+
+def clahe_plain(x: torch.Tensor, clip_limit: float = 2.5,
+                grid: int = 8) -> torch.Tensor:
+    """Plain PyTorch CLAHE over (..., H, W) float32 in [0, 1]."""
+    lead = x.shape[:-2]
+    h, w = x.shape[-2:]
+    th, tw = h // grid, w // grid
+    flat = x.reshape(-1, h, w)
+    b = flat.shape[0]
+    v = _to_bins(flat)
+    lut = clahe_lut_plain(flat, clip_limit, grid).reshape(b, -1)
+
+    y0, y1, wy1 = _blend_weights(h, th, grid, x.device)
+    x0, x1, wx1 = _blend_weights(w, tw, grid, x.device)
+    wy0, wx0 = 1.0 - wy1, 1.0 - wx1
+
+    def tap(ty, tx):
+        idx = (ty[:, None] * grid + tx[None, :]) * NBINS + v    # (b, h, w)
+        return torch.gather(lut, 1, idx.reshape(b, -1)).reshape(b, h, w)
+
+    out = tap(y0, x0) * (wy0[:, None] * wx0[None, :])
+    out = out + tap(y0, x1) * (wy0[:, None] * wx1[None, :])
+    out = out + tap(y1, x0) * (wy1[:, None] * wx0[None, :])
+    out = out + tap(y1, x1) * (wy1[:, None] * wx1[None, :])
+    return torch.clamp(out / 255.0, 0.0, 1.0).reshape(lead + (h, w))
+
+
+def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5,
+               grid: int = 8) -> torch.Tensor:
+    """Kernel A on a CUDA tensor; same contract as ``clahe_plain``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"clahe_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"clahe_cuda needs float32, got {x.dtype}")
+    h, w = x.shape[-2:]
+    if h % grid or w % grid:
+        raise ValueError(f"H, W ({h}, {w}) must be divisible by grid {grid}")
+    lead = x.shape[:-2]
+    flat = x.reshape(-1, h, w).contiguous()
+    b = flat.shape[0]
+    if not 0 < b <= 65535:
+        raise ValueError(f"batch {b} outside 1..65535")
+    area = (h // grid) * (w // grid)
+    lut = torch.empty((b, grid, grid, NBINS), dtype=torch.float32,
+                      device=x.device)
+    out = torch.empty_like(flat)
+    lib = _build.load_library()
+    rc = lib.mbfp_clahe(flat.data_ptr(), lut.data_ptr(), out.data_ptr(),
+                        b, h, w, grid, _clip_limit(clip_limit, area),
+                        (NBINS - 1.0) / area, _build.current_stream(x))
+    _build.check(rc, "mbfp_clahe")
+    _build.LAUNCHES["clahe"] += 1
+    return out.reshape(lead + (h, w))
+
+
+def clahe(x: torch.Tensor, clip_limit: float = 2.5, grid: int = 8) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return clahe_plain(x, clip_limit, grid)
+    return clahe_cuda(x, clip_limit, grid)

@@ -1,0 +1,65 @@
+"""Non-local means denoising (port of ``ops/denoise.py:nlm_denoise``).
+
+cv2.fastNlMeansDenoising(h=10, template=7, search=21) semantics over a
+reflect-padded 21x21 search window and a 7x7 template. In the default
+``precision="bf16"`` the per-offset SSD and weights round to bfloat16 at
+the same points as the JAX package's form (input, difference, square, the
+SSD after each box axis, the weight after exp, the weighted sample) and
+accumulate in float32. The 21 column offsets of each search row run as one
+batched tensor. Plain PyTorch in this slice: the JAX package's NLM kernel
+is not on the ported configuration's path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .filters import _pad_axis
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _box_sum(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
+    """Sum of ``size`` neighbours along ``axis`` (numpy "symmetric" border),
+    added in tap order."""
+    n = x.shape[axis]
+    c = size // 2
+    p = _pad_axis(x, axis % x.ndim, c, size - 1 - c, "reflect")
+    out = p.narrow(axis, 0, n)
+    for t in range(1, size):
+        out = out + p.narrow(axis, t, n)
+    return out
+
+
+def nlm_denoise(x: torch.Tensor, h: float = 10.0, template_window: int = 7,
+                search_window: int = 21,
+                precision: str = "bf16") -> torch.Tensor:
+    """Non-local means over (..., H, W) in [0,1]; ``precision`` "bf16"
+    (default) or "f32"."""
+    rnd = _bf16 if precision == "bf16" else (lambda t: t)
+    hn = h / 255.0
+    r = search_window // 2
+    hh, ww = x.shape[-2:]
+    xc = rnd(x.to(torch.float32))
+    # jnp.pad mode="reflect" is numpy's reflect, i.e. the "mirror" rule
+    pad = _pad_axis(_pad_axis(xc, xc.ndim - 2, r, r, "mirror"),
+                    xc.ndim - 1, r, r, "mirror")
+    inv = -1.0 / (hn * hn) / float(template_window ** 2)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    wacc = torch.zeros_like(acc)
+    xq = xc.unsqueeze(-3)                                    # (..., 1, H, W)
+    for dy in range(search_window):
+        strip = pad[..., dy:dy + hh, :]                      # (..., H, W+2r)
+        # (..., search_window, H, W): every column offset of this row
+        shifted = strip.unfold(-1, ww, 1).movedim(-2, -3)
+        diff = rnd(xq - shifted)
+        d2 = rnd(_box_sum(rnd(diff * diff), template_window, -2))
+        d2 = _box_sum(d2, template_window, -1)
+        wgt = rnd(torch.exp(d2 * inv))
+        term = rnd(wgt * shifted)
+        for dx in range(search_window):      # accumulate in offset order
+            acc = acc + term[..., dx, :, :]
+            wacc = wacc + wgt[..., dx, :, :]
+    return acc / torch.clamp(wacc, min=1e-8)
