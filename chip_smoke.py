@@ -3,17 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multimodal_biometric_fingerprints_palms_tpu_torch/csrc``,
-checks each kernel against its plain PyTorch twin on the card at the main
-path's shapes (batch 128 of 320x256 images, on real stage inputs), then
-drives the main path (``preprocess_fingerprint`` -> ``extract_minutiae`` ->
-``postprocess_minutiae``) on ``bench.make_batch(128)``, asserts that it went
-through every kernel, and checks its output. Imports nothing of JAX.
+Builds the port's CUDA kernels from ``multimodal_biometric_fingerprints_palms_tpu_torch/csrc``
+and drives both paths of the port on the card:
 
-Prints the card's name and power limit, one JSON line with every kernel's
-launches, error and times, and as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero on any failure, when no
-GPU is available, or outside a checkout of the repository.
+- enhance + extract: checks kernels A (CLAHE), B (connected components) and
+  C (thinning) against their plain PyTorch twins at the main path's shapes
+  (batch 128 of 320x256 images, on real stage inputs), then drives
+  ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
+  ``postprocess_minutiae`` on ``bench.make_batch(128)``, asserts that it
+  went through every kernel, and checks its output;
+- the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
+  plain twin at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
+  screen parameters, times the full pass at chunks of 512 and 4096 pairs
+  and breaks each chunk's host and device time down by step (the device
+  time under ``torch.profiler``), runs the FRR/FAR/EER protocol of the reference golden
+  (``tests/fixtures/parity_full_golden.json``) on the repository's 136
+  templates with the cascade on and off and holds it to the golden's
+  tolerances, and runs enhance -> match on 8 users x 2 sessions of
+  synthetic prints under the production matching configuration.
+
+Imports nothing of JAX or of the JAX package. Prints the card's name and
+power limit, one JSON line with every kernel's launches, error and times,
+and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
+any failure, when no GPU is available, or outside a checkout of the
+repository.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -37,6 +51,24 @@ MAX_COUNT_DIFF = 2            # valid minutiae per image
 CLAHE_ATOL = 1.0 / 255.0 + 1e-6
 CLAHE_MAX_OFF = 1e-3          # fraction of pixels allowed off by <= 1/255
 
+# Matcher. Kernel D against its plain twin: counts exact; scores within
+# 1e-6, because the warp's shuffle tree sums the K inlier scores in another
+# order than the twin's sum.
+D_ATOL = 1e-6
+PARITY_FULL = ROOT / "tests" / "fixtures" / "parity_full"
+GOLDEN = ROOT / "tests" / "fixtures" / "parity_full_golden.json"
+CHUNK = 512                   # pairs per device chunk (the runner's default)
+RATE_CHUNKS = (512, 4096)     # chunk sizes of the full-pass rate
+H_FULL = 300                  # RANSAC hypotheses of the full pass
+SCREEN_ITERS = 32             # configs/config_matching.yml matching.screen_iters
+# configs/config_matching.yml, hard-coded: the card's machine has no yaml
+PRODUCTION = dict(ransac_iter=300, stop_inlier_ratio=0.15, seed=42,
+                  peers=100, num_points=50, max_per_user=2, cascade=True)
+FRR_GATES = dict(dist_thresh=30.0, orient_thresh=math.radians(30.0),
+                 min_inliers=6)
+FAR_GATES = dict(dist_thresh=15.0, orient_thresh=math.radians(10.0),
+                 min_inliers=12)
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -51,21 +83,24 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def blob_prints(n: int, h: int = 320, w: int = 256):
+def blob_prints(seeds, phases=None, h: int = 320, w: int = 256):
     """Synthetic prints with blob constellations that leave >= 8 minutiae
-    after quality filtering (the generator of tests/test_end_to_end_eer.py;
-    bench.make_batch's concentric prints keep only 2-7, in the JAX package
-    and in the port alike)."""
+    after quality filtering: the generator ``_print(seed, phase)`` of
+    tests/test_end_to_end_eer.py, one print per seed (bench.make_batch's
+    concentric prints keep only 2-7, in the JAX package and in the port
+    alike). ``phases`` shifts the ridge pattern, as a second session."""
     import numpy as np
-    out = np.empty((n, h, w), np.float32)
+    seeds = list(seeds)
+    phases = [0.0] * len(seeds) if phases is None else list(phases)
+    out = np.empty((len(seeds), h, w), np.float32)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     r = np.sqrt(((yy - h / 2) / 1.1) ** 2 + (xx - w / 2) ** 2)
     ang = np.arctan2(yy - h / 2, xx - w / 2)
-    ridges = 0.5 + 0.5 * np.cos(r / 4.5 + 2.0 * np.sin(3 * ang))
     ell = (((yy - h / 2) / (0.42 * h)) ** 2
            + ((xx - w / 2) / (0.40 * w)) ** 2) < 1
-    for i in range(n):
-        g = np.random.default_rng(i)
+    for i, (seed, phase) in enumerate(zip(seeds, phases)):
+        ridges = 0.5 + 0.5 * np.cos(r / 4.5 + 2.0 * np.sin(3 * ang) + phase)
+        g = np.random.default_rng(seed)
         blobs = np.zeros((h, w), np.float32)
         for _ in range(110):
             by, bx = g.integers(40, h - 40), g.integers(40, w - 40)
@@ -90,6 +125,16 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_s(fn):
+    """(result, seconds) of ``fn`` on the host clock, synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def stage_times(x) -> dict:
@@ -125,11 +170,363 @@ def stage_times(x) -> dict:
     return out
 
 
+# --- the matcher ------------------------------------------------------------
+
+def gather_pairs(ds, pairs):
+    """The (P, K) A and B MinutiaeSets of (P, 2) sample-index pairs."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
+        _gather)
+    return _gather(ds, pairs[:, 0]), _gather(ds, pairs[:, 1])
+
+
+def kernel_d_phase(ds, pairs):
+    """Kernel D against its plain twin on the pairs' (P, K) templates, under
+    the FRR gates, the FAR gates and the cascade screen's parameters.
+    Returns (max abs error, kernel ms, plain ms) at the FRR gates."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        cuda_match as cm)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams, _pair_stats, sample_hypotheses)
+    a, b = gather_pairs(ds, pairs)
+    wa, wb, _, _, possible, _ = _pair_stats(a, b)
+    frr = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
+    cases = {
+        f"FRR gates, H={H_FULL}": frr,
+        f"FAR gates, H={H_FULL}": MatchParams(ransac_iter=H_FULL, **FAR_GATES),
+        f"screen, H={SCREEN_ITERS} of {H_FULL}": frr._replace(
+            ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
+            min_inliers=frr.min_inliers - 2),
+    }
+    err, timing_args = 0.0, None
+    for name, p in cases.items():
+        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
+        args = (a, b, wa, wb, theta, t, cand, possible, p)
+        sk, ck = cm.hypothesis_scores_cuda(*args)
+        sp, cp = cm.hypothesis_scores_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((ck != cp).sum())
+        e = float((sk - sp).abs().max())
+        print(f"  {name}: P={sk.shape[0]} H={sk.shape[1]}: count mismatches "
+              f"{bad} / {ck.numel()}, max|ds| {e:.3g}, scores > 0 "
+              f"{int((sk > 0).sum())}")
+        if bad or e > D_ATOL or not torch.isfinite(sk).all():
+            fail(f"kernel D differs from its plain twin ({name})")
+        if int((sk > 0).sum()) == 0:
+            fail(f"kernel D comparison is trivial ({name}): no score > 0")
+        err = max(err, e)
+        timing_args = timing_args or args
+    ms = time_ms(lambda: cm.hypothesis_scores_cuda(*timing_args), 20)
+    plain_ms = time_ms(lambda: cm.hypothesis_scores_plain(*timing_args), 3)
+    print(f"  time per call (P={len(pairs)}, H={H_FULL}, K=64): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def chunk_profile(ds, pairs, reps: int = 5) -> None:
+    """Where one chunk's time goes. For the full pass's steps (sampling with
+    the per-pair stats, kernel D with its input staging, the finish), the
+    whole pass and the cascade screen, on the same (P, K) templates:
+
+    - host ms: the host clock around one call, synchronized before and
+      after it, mean of ``reps`` calls after a warm-up. The steps are each
+      synchronized, so their sum exceeds the whole pass by the overlap of
+      one step's device work with the next step's launches;
+    - device ms: under ``torch.profiler``, the summed durations of the
+      device operations (kernels, copies, fills) one call issues, and
+      their count;
+    - device busy share: the whole pass's device ms over its host ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        cuda_match as cm)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams, _finish_match, _pair_stats, sample_hypotheses)
+    a, b = gather_pairs(ds, pairs)
+    p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
+    screen_p = p._replace(ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
+                          min_inliers=max(3, p.min_inliers - 2))
+    st = {}
+
+    def sample():
+        st["stats"] = _pair_stats(a, b)
+        wa, wb = st["stats"][:2]
+        st["hyp"] = sample_hypotheses(a, b, wa, wb, p)
+
+    def score():
+        wa, wb, _, _, possible, _ = st["stats"]
+        st["scores"] = cm.hypothesis_scores_cuda(a, b, wa, wb, *st["hyp"],
+                                                 possible, p)
+
+    def finish():
+        wa, wb, na, nb, possible, reject = st["stats"]
+        theta, t, _ = st["hyp"]
+        _finish_match(a, b, wa, wb, possible, na, nb, reject, *st["scores"],
+                      theta, t, p)
+
+    steps = {"sample": sample, "kernel D + staging": score, "finish": finish,
+             "whole pass": lambda: cm.match_pairs_batch(a, b, p),
+             "screen": lambda: cm.screen_promote_batch(a, b, screen_p)}
+    host, device, top = {}, {}, {}
+    for name, fn in steps.items():
+        fn()
+        host[name] = sum(wall_s(fn)[1] for _ in range(reps)) / reps * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device[name] = (sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+                        len(ops))
+        if name == "whole pass":
+            for e in ops:
+                ms, n = top.get(e.name, (0.0, 0))
+                top[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    n = len(pairs)
+    part = ("sample", "kernel D + staging", "finish")
+    print(f"  chunk {n}, host ms per call, synchronized: " + ", ".join(
+        f"{k} {host[k]:.3f}" for k in steps)
+        + f"; sum of the three steps {sum(host[k] for k in part):.3f}")
+    print(f"  chunk {n}, device ms (device ops) under torch.profiler: "
+          + ", ".join(f"{k} {device[k][0]:.3f} ({device[k][1]})"
+                      for k in steps)
+          + f"; whole pass busy {device['whole pass'][0] / host['whole pass']:.1%}"
+          f" of its host ms")
+    ranked = sorted(top.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"  chunk {n}, whole pass, top device ops: " + "; ".join(
+        f"{name[:70]} {ms:.3f} ms ({c})" for name, (ms, c) in ranked))
+
+
+def protocol(ds, frr_p, far_p, cascade: bool, peers: int, seed: int,
+             num_points: int) -> dict:
+    """The FRR/FAR/EER protocol of the JAX package's ``runner.main``: every
+    genuine pair under the FRR gates, the sampled impostor pairs under the
+    FAR gates, 50-point threshold sweeps, interpolated EER."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.evaluation import (
+        compute_eer, evaluate_far_across_thresholds,
+        evaluate_frr_across_thresholds)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
+        genuine_pairs, impostor_pairs)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
+        match_pair_indices)
+    g_pairs = genuine_pairs(ds)
+    i_pairs = impostor_pairs(ds, peers_per_user=peers, seed=seed)
+    g, t_g = wall_s(lambda: match_pair_indices(
+        ds, g_pairs, frr_p, CHUNK, cascade, SCREEN_ITERS)["final_score"])
+    i, t_i = wall_s(lambda: match_pair_indices(
+        ds, i_pairs, far_p, CHUNK, cascade, SCREEN_ITERS)["final_score"])
+    thr, frr = evaluate_frr_across_thresholds(g, num_points)
+    _, far = evaluate_far_across_thresholds(i, num_points)
+    eer, _ = compute_eer(thr, frr, far)
+    n = len(g_pairs) + len(i_pairs)
+    print(f"  cascade={cascade}: {len(g_pairs)} genuine + {len(i_pairs)} "
+          f"impostor pairs in {t_g + t_i:.3f} s ({t_g:.3f} + {t_i:.3f}) -> "
+          f"{n / (t_g + t_i):.1f} pairs/s; genuine mean {g.mean():.4f}, "
+          f"impostor mean {i.mean():.4f}, EER {eer:.4f}")
+    return dict(g_pairs=g_pairs, i_pairs=i_pairs, genuine=g, impostor=i,
+                frr=frr, far=far, eer=eer)
+
+
+def check_golden(run: dict, golden: dict, name: str) -> None:
+    """The tolerances of tests/test_full_protocol_parity.py."""
+    import numpy as np
+    ref = np.asarray(golden["frr"])
+    our = np.asarray(run["frr"])
+    tol = 2.5 / 192.0      # FRR: one threshold bin of slack +- 2.5 pairs
+    lo = np.minimum(np.minimum(ref, np.roll(ref, 1)), np.roll(ref, -1))
+    hi = np.maximum(np.maximum(ref, np.roll(ref, 1)), np.roll(ref, -1))
+    lo[0], hi[0], lo[-1], hi[-1] = ref[0], ref[0], ref[-1], ref[-1]
+    frr_viol = float(np.max(np.maximum(our - (hi + tol), (lo - tol) - our)))
+    far_d = float(np.max(np.abs(np.asarray(run["far"])
+                                - np.asarray(golden["far"]))))
+    eer_d = abs(run["eer"] - golden["eer"])
+    g_d = abs(run["genuine"].mean() - np.mean(golden["genuine_scores"]))
+    i_d = abs(run["impostor"].mean() - np.mean(golden["impostor_scores"]))
+    print(f"  {name} vs golden: FRR band excess {frr_viol:.4f} (<= 0), "
+          f"max|dFAR| {far_d:.4f} (<= 0.03), |dEER| {eer_d:.4f} (<= 0.015), "
+          f"|d genuine mean| {g_d:.4f} (<= 0.04), |d impostor mean| "
+          f"{i_d:.4f} (<= 0.01)")
+    if frr_viol > 0 or far_d > 0.03 or eer_d > 0.015 or g_d > 0.04 \
+            or i_d > 0.01:
+        fail(f"{name}: outside the golden's tolerances")
+
+
+def expected_chunks(ds, pairs, params, cascade: bool) -> int:
+    """Kernel-D launches ``match_pair_indices`` makes for ``pairs``: one per
+    screen chunk and one per full-pass chunk of the promoted pairs."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
+        screen_pair_indices)
+    chunks = lambda n: -(-n // CHUNK)
+    if not cascade or params.ransac_iter <= SCREEN_ITERS:
+        return chunks(len(pairs))
+    promoted = screen_pair_indices(ds, pairs, params, CHUNK, SCREEN_ITERS)
+    print(f"    screen promoted {int(promoted.sum())} of {len(pairs)} pairs")
+    return chunks(len(pairs)) + chunks(int(promoted.sum()))
+
+
+def golden_phase(dev, build) -> int:
+    """The reference golden's protocol on the 136 fixture templates, cascade
+    off and on. Returns kernel D's launches in the cascade run (the
+    production route)."""
+    import numpy as np
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
+        load_dataset)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    golden = json.loads(GOLDEN.read_text())
+    pr = golden["protocol"]
+    ds = load_dataset(PARITY_FULL, max_per_user=pr["max_per_user"], k=64,
+                      device=dev)
+    print(f"  {len(ds.users)} users, {len(ds.matrices)} templates on {dev}")
+
+    def params(gates):
+        return MatchParams(dist_thresh=float(gates["dist"]),
+                           orient_thresh=math.radians(gates["orient_deg"]),
+                           min_inliers=int(gates["min_inliers"]),
+                           ransac_iter=int(pr["ransac_iter"]),
+                           stop_inlier_ratio=float(pr["stop_inlier_ratio"]),
+                           seed=42)
+
+    frr_p, far_p = params(pr["frr"]), params(pr["far"])
+    runs, launches = {}, {}
+    for cascade in (False, True):
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+        run = protocol(ds, frr_p, far_p, cascade, peers=100, seed=42,
+                       num_points=pr["num_points"])
+        launches[cascade] = dict(build.LAUNCHES)
+        want = (expected_chunks(ds, run["g_pairs"], frr_p, cascade)
+                + expected_chunks(ds, run["i_pairs"], far_p, cascade))
+        print(f"    launches {launches[cascade]}; kernel-D chunks expected "
+              f"{want}")
+        if launches[cascade] != {"clahe": 0, "cc": 0, "thin": 0,
+                                 "match": want}:
+            fail(f"cascade={cascade}: launch counts {launches[cascade]}, "
+                 f"expected {want} kernel-D chunks and nothing else")
+        check_golden(run, golden, f"cascade={cascade}")
+        runs[cascade] = run
+
+    same = all(np.array_equal(runs[True][k], runs[False][k])
+               for k in ("frr", "far")) and runs[True]["eer"] == runs[False]["eer"]
+    if same:
+        print("  the cascade leaves the FRR and FAR curves and the EER unchanged")
+    else:
+        for kind, pk in (("genuine", "g_pairs"), ("impostor", "i_pairs")):
+            d = np.nonzero(runs[True][kind] != runs[False][kind])[0]
+            for j in d:
+                print(f"  CASCADE CHANGED {kind} pair {runs[True][pk][j].tolist()}: "
+                      f"{runs[False][kind][j]:.6f} -> {runs[True][kind][j]:.6f}")
+        print("  the cascade changed the curves; its run is held to the "
+              "golden's tolerances above")
+    return launches[True]["match"]
+
+
+def blob_protocol_phase(dev, run_path, build) -> None:
+    """Enhance -> extract -> JSON -> dataset -> match on 8 users x 2 sessions
+    of blob prints (tests/test_end_to_end_eer.py's set, without its JPEG
+    round trip), under the production matching configuration."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
+        load_dataset)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.io import (
+        minutiae_to_json, save_minutiae_json)
+    names = [(u, s) for u in range(1, 9) for s in (1, 2)]
+    x = torch.from_numpy(blob_prints([10 + u for u, _ in names],
+                                     [0.06 * (s - 1) for _, s in names])).to(dev)
+    _, ms = run_path(x)
+    fields = [f.cpu().numpy() for f in ms]
+    pr = PRODUCTION
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (u, s) in enumerate(names):
+            save_minutiae_json(Path(tmp) / f"{u}_1_{s}_minutiae.json",
+                               minutiae_to_json(*(f[i] for f in fields)))
+        ds = load_dataset(tmp, max_per_user=pr["max_per_user"], device=dev)
+    counts = [len(m) for m in ds.matrices]
+    print(f"  {len(ds.users)} users, valid minutiae per template {counts}")
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
+    mk = lambda gates: MatchParams(ransac_iter=pr["ransac_iter"],
+                                   stop_inlier_ratio=pr["stop_inlier_ratio"],
+                                   seed=pr["seed"], **gates)
+    run = protocol(ds, mk(FRR_GATES), mk(FAR_GATES), pr["cascade"],
+                   pr["peers"], pr["seed"], pr["num_points"])
+    print(f"    launches {dict(build.LAUNCHES)}")
+    gap = float(run["genuine"].mean() - run["impostor"].mean())
+    if len(ds.users) != 8 or len(run["g_pairs"]) != 8:
+        fail("blob protocol: expected 8 users with 2 templates each")
+    if build.LAUNCHES["match"] == 0:
+        fail("blob protocol did not launch kernel D")
+    if not (np.isfinite(run["genuine"]).all()
+            and np.isfinite(run["impostor"]).all()):
+        fail("blob protocol: non-finite scores")
+    if gap < 0.3 or run["eer"] > 0.13:
+        fail(f"blob protocol: genuine - impostor mean {gap:.4f} (>= 0.3), "
+             f"EER {run['eer']:.4f} (<= 0.13)")
+
+
+def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        MinutiaeSet)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
+        MinutiaeDataset, genuine_pairs, impostor_pairs, load_dataset)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
+        match_pair_indices)
+
+    # 1. kernel D at production width, on the 136 fixture templates and the
+    # enhance path's 16 blob-print templates in one gallery
+    print("kernel D (RANSAC hypothesis scoring):")
+    fix = load_dataset(PARITY_FULL, max_per_user=4, device=dev)
+    nfix = len(fix.matrices)
+    gds = MinutiaeDataset([], np.zeros(0), np.zeros(0), [], MinutiaeSet(
+        *(torch.cat([f, bt]) for f, bt in zip(fix.stacked, blob_templates))))
+    nblob = blob_templates.valid.shape[0]
+    fix_pairs = np.concatenate([genuine_pairs(fix), impostor_pairs(fix)])
+    blob_pairs = np.asarray([(nfix + i, nfix + j) for i in range(nblob)
+                             for j in range(i + 1, nblob)], np.int32)
+    d_pairs = np.concatenate([blob_pairs, fix_pairs])[:CHUNK]
+    d_err, d_ms, d_plain_ms = kernel_d_phase(gds, d_pairs)
+
+    # full-pass rate at chunk 512 and 4096 (one chunk each, synchronized),
+    # and where each chunk's time goes
+    p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
+    many = fix_pairs[:max(RATE_CHUNKS)]
+    reps = 3
+    for chunk in RATE_CHUNKS:
+        match_pair_indices(gds, many[:chunk], p, chunk=chunk)
+        _, secs = wall_s(lambda: [match_pair_indices(gds, many[:chunk], p,
+                                                     chunk=chunk)
+                                  for _ in range(reps)])
+        print(f"  full pass, H={H_FULL}, chunk {chunk}: {secs / reps * 1e3:.2f} ms "
+              f"per chunk -> {chunk * reps / secs:.1f} pairs/s on {card}")
+    for chunk in RATE_CHUNKS:
+        chunk_profile(gds, many[:chunk])
+
+    # 2. the golden protocol
+    print("golden protocol (tests/fixtures/parity_full, RANSAC 300):")
+    d_launches = golden_phase(dev, build)
+
+    # 3. enhance -> match
+    print("enhance -> match (8 users x 2 sessions of blob prints, "
+          "production configuration):")
+    blob_protocol_phase(dev, run_path, build)
+    return dict(err=d_err, ms=d_ms, plain_ms=d_plain_ms, launches=d_launches)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
-    if not (ROOT / PKG).is_dir() or not (ROOT / "bench.py").is_file():
+    if not (ROOT / PKG).is_dir() or not (ROOT / "bench.py").is_file() \
+            or not GOLDEN.is_file():
         fail(f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
 
@@ -284,7 +681,7 @@ def main() -> None:
     first_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     print(f"  launches in one run: {launches}")
-    expected = {"clahe": 3, "cc": 4, "thin": 1}
+    expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0}
     if launches != expected:
         fail(f"launch counts {launches}, expected {expected}")
     iters = 3
@@ -328,12 +725,15 @@ def main() -> None:
     if mism > MAX_SKEL_MISMATCH * total or int(dcount.max()) > MAX_COUNT_DIFF:
         fail("card and CPU port disagree beyond the stated bound")
 
-    xb = torch.from_numpy(blob_prints(16)).to(dev)
+    xb = torch.from_numpy(blob_prints(range(16))).to(dev)
     _, msb = run_path(xb)
     cb = msb.count.cpu()
     print(f"  valid minutiae per blob print: {cb.tolist()}")
     if int((cb >= 8).sum()) < 12:
         fail("fewer than 12 of 16 blob prints yield >= 8 minutiae")
+
+    # 5. the matcher
+    d = matcher_phases(dev, build, card, msb, run_path)
 
     src = f"{PKG}/csrc"
     kernels = [
@@ -352,11 +752,19 @@ def main() -> None:
                      "pallas_bitpack.py:382",
          "launches": launches["thin"], "max_abs_err": 0.0,
          "ms": thin_ms, "plain_ms": thin_plain_ms},
+        {"name": "hypothesis_scores", "route": "cuda",
+         "source": f"{src}/match.cu",
+         "replaces": "multimodal_biometric_fingerprints_palms_tpu/matching/"
+                     "pallas_match.py:218",
+         "launches": d["launches"], "max_abs_err": d["err"],
+         "ms": d["ms"], "plain_ms": d["plain_ms"]},
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']} {key} not finite")
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was not launched on its path")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ masks bool, ``MinutiaeSet`` a NamedTuple of tensors.
 
 Ported so far: the enhance + extract chain (``preprocess_fingerprint`` ->
 ``extract_minutiae`` -> ``postprocess_minutiae``) in the configuration the
-JAX package runs with ``use_pallas=False``.
+JAX package runs with ``use_pallas=False``; the 1:1 RANSAC matcher
+(``matching.runner.match_pair_indices``, with and without the cascade
+screen) on the JAX package's accelerator route, with the minutiae JSON
+reader and writer (``utils.io``) and the FRR/FAR/EER protocol functions
+(``evaluation``).
 """
 
 __version__ = "0.1.0"

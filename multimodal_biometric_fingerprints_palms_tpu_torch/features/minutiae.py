@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +39,32 @@ class MinutiaeSet(NamedTuple):
             self.coherence[..., None],
             self.angular_stability[..., None],
         ], dim=-1)
+
+
+def from_matrix(mat: torch.Tensor, valid: torch.Tensor) -> MinutiaeSet:
+    """Build a MinutiaeSet from the reference (…, K, 7) matrix layout."""
+    return MinutiaeSet(
+        xy=mat[..., :2].to(torch.float32),
+        minutia_type=mat[..., 2].to(torch.int32),
+        orientation=mat[..., 3].to(torch.float32),
+        quality=mat[..., 4].to(torch.float32),
+        coherence=mat[..., 5].to(torch.float32),
+        angular_stability=mat[..., 6].to(torch.float32),
+        valid=valid.to(torch.bool),
+    )
+
+
+def minutiae_from_numpy(d, device="cpu") -> MinutiaeSet:
+    """A MinutiaeSet on ``device`` from array-likes keyed by the field names
+    (a mapping, or any NamedTuple with the same fields, such as the JAX
+    package's ``MinutiaeSet`` of numpy arrays)."""
+    if hasattr(d, "_asdict"):
+        d = d._asdict()
+    dtypes = dict(xy=np.float32, minutia_type=np.int32, valid=np.bool_)
+    return MinutiaeSet(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            np.asarray(d[f]).astype(dtypes.get(f, np.float32)))).to(device)
+        for f in MinutiaeSet._fields})
 
 
 def crossing_number(skel: torch.Tensor) -> torch.Tensor:

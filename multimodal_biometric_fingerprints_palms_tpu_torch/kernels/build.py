@@ -26,11 +26,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # Every kernel source of the port; each is compiled into the one library.
-SOURCES = ("clahe.cu", "cc.cu", "thin.cu")
+SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"clahe": 0, "cc": 0, "thin": 0}
+LAUNCHES = {"clahe": 0, "cc": 0, "thin": 0, "match": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +47,10 @@ _SIGNATURES = {
                        _P),
     # mask, out, nb, h, w, max_iters, prune, stream
     "mbfp_zs_thin": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # fa, fb, hyp, possible, scores, counts, p, h, k, dist2, orient,
+    # sigma_d2, sigma_o2, use_type, min_inliers, stream
+    "mbfp_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                               _F, _F, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -49,12 +49,31 @@ SLICE = {
                               "smooth_fingerprint_skeleton",
                               "thinning_and_cleaning",
                               "preprocess_fingerprint"],
-    "features.minutiae": ["crossing_number", "extract_minutiae"],
+    "features.minutiae": ["crossing_number", "extract_minutiae",
+                          "from_matrix"],
     "features.quality": ["postprocess_minutiae"],
+    "matching.ransac": ["compute_descriptor_weights", "hypothesis_uniforms",
+                        "sample_hypotheses", "anchor_promote",
+                        "match_minutiae_pair", "match_pairs_batch",
+                        "screen_promote_batch"],
+    "matching.dataset": ["load_dataset", "genuine_pairs", "impostor_pairs"],
+    "matching.runner": ["match_pair_indices"],
+    "utils.io": ["minutiae_to_json", "save_minutiae_json",
+                 "load_minutiae_matrix", "pad_minutiae"],
+    "evaluation.metrics": ["evaluate_frr_across_thresholds",
+                           "evaluate_far_across_thresholds", "compute_eer"],
 }
-# The port keeps no use_pallas switch: it is the use_pallas=False
-# configuration, with the kernels chosen by the tensor's device.
-DROPPED = {"use_pallas"}
+# Functions the port keeps in another module: the matcher's batch entry
+# points sit beside kernel D's wrapper.
+PORT_MODULE = {
+    ("matching.ransac", name): "matching.cuda_match"
+    for name in ("match_minutiae_pair", "match_pairs_batch",
+                 "screen_promote_batch")}
+# The port keeps no use_pallas switch (the kernels are chosen by the
+# tensor's device) and no anchors=False screen ablation switch.
+DROPPED = {"use_pallas", "anchors"}
+# Parameters only the port has: the device a dataset is loaded onto.
+ADDED = {"device"}
 
 
 def _params(fn, drop=()):
@@ -74,27 +93,71 @@ def test_port_imports_neither_jax_nor_cv2():
     assert res.returncode == 0, res.stderr
 
 
+def test_matcher_imports_neither_jax_cv2_pil_nor_the_jax_package():
+    """The matcher runs on a machine without JAX, OpenCV or PIL, and the
+    script that drives it there imports nothing of the JAX package."""
+    code = ("import sys; import {0}.matching.runner, {0}.utils.io, "
+            "{0}.evaluation; "
+            "bad = [m for m in ('jax', 'cv2', 'PIL', '{1}') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
+            ).format(PORT_PKG, JAX_PKG)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("module", sorted(SLICE))
 def test_signatures_match_jax(module):
     jm = importlib.import_module(f"{JAX_PKG}.{module}")
-    tm = importlib.import_module(f"{PORT_PKG}.{module}")
     for name in SLICE[module]:
+        tm = importlib.import_module(
+            f"{PORT_PKG}.{PORT_MODULE.get((module, name), module)}")
         assert (_params(getattr(jm, name), DROPPED)
-                == _params(getattr(tm, name))), f"{module}.{name}"
+                == _params(getattr(tm, name), ADDED)), f"{module}.{name}"
 
 
 def test_named_tuples_match_jax():
     pairs = [("features.minutiae", "MinutiaeSet"),
              ("ops.orientation", "OrientationField"),
-             ("preprocessing.enhance", "EnhancementResult")]
+             ("preprocessing.enhance", "EnhancementResult"),
+             ("matching.ransac", "MatchParams"),
+             ("matching.ransac", "MatchResult"),
+             ("matching.dataset", "MinutiaeDataset")]
     for module, name in pairs:
         jt = getattr(importlib.import_module(f"{JAX_PKG}.{module}"), name)
         tt = getattr(importlib.import_module(f"{PORT_PKG}.{module}"), name)
         assert jt._fields == tt._fields, name
+        assert jt._field_defaults == tt._field_defaults, name
+
+
+def test_minutiae_from_numpy_is_identity():
+    """The templates handed to both packages: the JAX MinutiaeSet's numpy
+    arrays become the port's MinutiaeSet with equal values and dtypes."""
+    from multimodal_biometric_fingerprints_palms_tpu.features.minutiae import (
+        MinutiaeSet as JSet)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        minutiae_from_numpy)
+    g = np.random.default_rng(3)
+    ref = JSet(xy=g.uniform(0, 300, (2, 8, 2)).astype(np.float32),
+               minutia_type=g.integers(0, 2, (2, 8)).astype(np.int32),
+               orientation=g.normal(size=(2, 8)).astype(np.float32),
+               quality=g.random((2, 8)).astype(np.float32),
+               coherence=g.random((2, 8)).astype(np.float32),
+               angular_stability=g.random((2, 8)).astype(np.float32),
+               valid=g.random((2, 8)) < 0.7)
+    got = minutiae_from_numpy(ref)
+    assert got._fields == ref._fields
+    for x, y in zip(got, ref):
+        assert x.numpy().dtype == y.dtype
+        np.testing.assert_array_equal(x.numpy(), y)
+    assert minutiae_from_numpy(ref._asdict()).xy.equal(got.xy)
 
 
 def test_kernel_sources_exist():
     assert build.SOURCES
+    assert "match.cu" in build.SOURCES and "match" in build.LAUNCHES
+    assert "mbfp_hypothesis_scores" in build._SIGNATURES
     for name in build.SOURCES:
         assert (build.CSRC_DIR / name).is_file(), name
     # the build directory is git-ignored
@@ -121,3 +184,35 @@ def test_wrappers_raise_off_cpu_without_cuda(call):
     t = torch.zeros((1, 16, 16), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(t)
+
+
+def _hypothesis_args(device, pnum=2, k=16, h=8):
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        MinutiaeSet)
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+    ms = MinutiaeSet(z(pnum, k, 2), z(pnum, k, dt=torch.int32), z(pnum, k),
+                     z(pnum, k), z(pnum, k), z(pnum, k),
+                     z(pnum, k, dt=torch.bool))
+    return (ms, ms, z(pnum, k), z(pnum, k), z(pnum, h), z(pnum, h, 2),
+            z(pnum, h), z(pnum))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_hypothesis_scores_cuda_refuses_other_devices(device):
+    """Kernel D's wrapper raises on a CPU or any other non-CUDA tensor, and
+    the dispatcher gives only a CPU tensor to the plain twin."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        cuda_match)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    args = _hypothesis_args(device)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_match.hypothesis_scores_cuda(*args, MatchParams())
+    before = dict(build.LAUNCHES)
+    if device == "cpu":
+        s, c = cuda_match.hypothesis_scores(*args, MatchParams())
+        assert s.shape == c.shape == (2, 8) and c.dtype == torch.int32
+    else:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cuda_match.hypothesis_scores(*args, MatchParams())
+    assert build.LAUNCHES == before
