@@ -6,10 +6,11 @@
 Builds the port's CUDA kernels from ``multimodal_biometric_fingerprints_palms_tpu_torch/csrc``
 and drives both paths of the port on the card:
 
-- enhance + extract: checks kernels A (CLAHE), B (connected components) and
-  C (thinning) against their plain PyTorch twins at the main path's shapes
-  (batch 128 of 320x256 images, on real stage inputs), then drives
-  ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
+- enhance + extract: checks kernels A (CLAHE), B (connected components),
+  C (thinning), E (non-local means), F (binarize front) and G
+  (open/erode/reconstruct) against their plain PyTorch twins at the main
+  path's shapes (batch 128 of 320x256 images, on real stage inputs), then
+  drives ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
   ``postprocess_minutiae`` on ``bench.make_batch(128)``, asserts that it
   went through every kernel, and checks its output;
 - the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
@@ -23,8 +24,9 @@ and drives both paths of the port on the card:
   synthetic prints under the production matching configuration.
 
 Imports nothing of JAX or of the JAX package. Prints the card's name and
-power limit, one JSON line with every kernel's launches, error and times,
-and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
+power limit, one JSON line with every kernel's launches, error, times and
+bound (the least time the card could take: bytes over its memory rate or
+operations over its float32 rate, whichever is larger), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
 any failure, when no GPU is available, or outside a checkout of the
 repository.
 """
@@ -50,6 +52,20 @@ MAX_SKEL_MISMATCH = 0.05      # of the CPU skeleton's pixels
 MAX_COUNT_DIFF = 2            # valid minutiae per image
 CLAHE_ATOL = 1.0 / 255.0 + 1e-6
 CLAHE_MAX_OFF = 1e-3          # fraction of pixels allowed off by <= 1/255
+# Kernel E visits the offsets in its twin's order with the twin's rounding
+# points, so the aim is 0; the slack is for expf against torch.exp landing
+# on the two sides of a bf16 rounding boundary.
+NLM_ATOL = 1e-5
+NLM_MAX_OFF = 1e-4            # fraction of pixels allowed off by > 1e-6
+# Kernel F follows its twin operation by operation except for the order of
+# the 1,024-term patch mean and variance sums, which can move the
+# `p_std >= 3/255` gate of a patch that sits on it.
+F_MAX_MISMATCH = 1e-3         # fraction of mask pixels
+# Published peaks of one H100 SXM: device memory rate, and float32 rate
+# outside the tensor cores (integer and logic operations are counted at the
+# same rate).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 # Matcher. Kernel D against its plain twin: counts exact; scores within
 # 1e-6, because the warp's shuffle tree sums the K inlier scores in another
@@ -112,6 +128,52 @@ def blob_prints(seeds, phases=None, h: int = 320, w: int = 256):
     return out
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and to
+    do ``ops`` operations, whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def thinning_work(mask) -> float:
+    """Zhang-Suen operations this batch needs: each image runs subpass pairs
+    until one pair changes nothing (that last pair included), and a subpass
+    costs about 40 operations per pixel still set (8 neighbour reads, the
+    count, the transition count, the two products, the test)."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_thin import (
+        _subpass)
+    img = mask.to(torch.int32)
+    live = img.new_ones(img.shape[0], dtype=bool)
+    ops = 0.0
+    while bool(live.any()):
+        ops += 2 * 40.0 * float(img[live].sum())
+        new = _subpass(_subpass(img, True), False)
+        live = live & (new != img).flatten(1).any(dim=1)
+        img = new
+    return ops
+
+
+def reconstruct_work(mask) -> float:
+    """Operations kernel G's function needs on this batch: three 5-tap
+    stencils per pixel, then per sweep 9 operations for each pixel of
+    `opened` not reached yet, for as many synchronous sweeps as each image
+    needs (the last, which changes nothing, included)."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
+        binary_dilate, binary_erode, binary_opening)
+    opened = binary_opening(mask, 3, shape="ellipse")
+    reached = binary_erode(opened, 3, shape="ellipse")
+    live = opened.new_ones(opened.shape[0], dtype=bool)
+    ops = 3 * 5.0 * mask.numel()
+    while bool(live.any()):
+        ops += 9.0 * float((opened & ~reached)[live].sum())
+        new = binary_dilate(reached, 3, shape="rect") & opened
+        live = live & (new != reached).flatten(1).any(dim=1)
+        reached = new
+    return ops
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` runs after a warm-up."""
     import torch
@@ -135,6 +197,31 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def profile_ops(fn) -> list:
+    """The device operations (kernels, copies, fills) one call of ``fn``
+    issues, as ``torch.profiler`` events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def top_ops(ops, n: int = 5) -> str:
+    """The ``n`` device operations with the most summed time, by name."""
+    top = {}
+    for e in ops:
+        ms, cnt = top.get(e.name, (0.0, 0))
+        top[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    ranked = sorted(top.items(), key=lambda kv: -kv[1][0])[:n]
+    return "; ".join(f"{name[:70]} {ms:.3f} ms ({c})"
+                     for name, (ms, c) in ranked)
 
 
 def stage_times(x) -> dict:
@@ -182,7 +269,8 @@ def gather_pairs(ds, pairs):
 def kernel_d_phase(ds, pairs):
     """Kernel D against its plain twin on the pairs' (P, K) templates, under
     the FRR gates, the FAR gates and the cascade screen's parameters.
-    Returns (max abs error, kernel ms, plain ms) at the FRR gates."""
+    Returns (max abs error, kernel ms, plain ms, bound ms, bound by) at the
+    FRR gates."""
     import torch
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
@@ -218,9 +306,15 @@ def kernel_d_phase(ds, pairs):
         timing_args = timing_args or args
     ms = time_ms(lambda: cm.hypothesis_scores_cuda(*timing_args), 20)
     plain_ms = time_ms(lambda: cm.hypothesis_scores_plain(*timing_args), 3)
+    # the staged inputs (x, y, orientation, type, weight per minutia of A and
+    # B; theta, tx, ty, has_cand per hypothesis; `possible`) and both
+    # outputs; about 10 float operations per transformed-A-to-B distance
+    pn, kk = a.valid.shape
+    b_ms, b_by = bound(4.0 * pn * (10 * kk + 4 * H_FULL + 1 + 2 * H_FULL),
+                       10.0 * pn * H_FULL * kk * kk)
     print(f"  time per call (P={len(pairs)}, H={H_FULL}, K=64): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def chunk_profile(ds, pairs, reps: int = 5) -> None:
@@ -236,9 +330,6 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
       device operations (kernels, copies, fills) one call issues, and
       their count;
     - device busy share: the whole pass's device ms over its host ms."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
@@ -268,22 +359,15 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
     steps = {"sample": sample, "kernel D + staging": score, "finish": finish,
              "whole pass": lambda: cm.match_pairs_batch(a, b, p),
              "screen": lambda: cm.screen_promote_batch(a, b, screen_p)}
-    host, device, top = {}, {}, {}
+    host, device, whole = {}, {}, []
     for name, fn in steps.items():
         fn()
         host[name] = sum(wall_s(fn)[1] for _ in range(reps)) / reps * 1e3
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ops = profile_ops(fn)
         device[name] = (sum(e.time_range.elapsed_us() for e in ops) / 1e3,
                         len(ops))
         if name == "whole pass":
-            for e in ops:
-                ms, n = top.get(e.name, (0.0, 0))
-                top[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            whole = ops
     n = len(pairs)
     part = ("sample", "kernel D + staging", "finish")
     print(f"  chunk {n}, host ms per call, synchronized: " + ", ".join(
@@ -294,9 +378,7 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
                       for k in steps)
           + f"; whole pass busy {device['whole pass'][0] / host['whole pass']:.1%}"
           f" of its host ms")
-    ranked = sorted(top.items(), key=lambda kv: -kv[1][0])[:5]
-    print(f"  chunk {n}, whole pass, top device ops: " + "; ".join(
-        f"{name[:70]} {ms:.3f} ms ({c})" for name, (ms, c) in ranked))
+    print(f"  chunk {n}, whole pass, top device ops: " + top_ops(whole))
 
 
 def protocol(ds, frr_p, far_p, cascade: bool, peers: int, seed: int,
@@ -401,7 +483,7 @@ def golden_phase(dev, build) -> int:
                 + expected_chunks(ds, run["i_pairs"], far_p, cascade))
         print(f"    launches {launches[cascade]}; kernel-D chunks expected "
               f"{want}")
-        if launches[cascade] != {"clahe": 0, "cc": 0, "thin": 0,
+        if launches[cascade] != {**dict.fromkeys(build.LAUNCHES, 0),
                                  "match": want}:
             fail(f"cascade={cascade}: launch counts {launches[cascade]}, "
                  f"expected {want} kernel-D chunks and nothing else")
@@ -493,7 +575,8 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
     blob_pairs = np.asarray([(nfix + i, nfix + j) for i in range(nblob)
                              for j in range(i + 1, nblob)], np.int32)
     d_pairs = np.concatenate([blob_pairs, fix_pairs])[:CHUNK]
-    d_err, d_ms, d_plain_ms = kernel_d_phase(gds, d_pairs)
+    d_err, d_ms, d_plain_ms, d_bound_ms, d_bound_by = kernel_d_phase(
+        gds, d_pairs)
 
     # full-pass rate at chunk 512 and 4096 (one chunk each, synchronized),
     # and where each chunk's time goes
@@ -518,7 +601,8 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
     print("enhance -> match (8 users x 2 sessions of blob prints, "
           "production configuration):")
     blob_protocol_phase(dev, run_path, build)
-    return dict(err=d_err, ms=d_ms, plain_ms=d_plain_ms, launches=d_launches)
+    return dict(err=d_err, ms=d_ms, plain_ms=d_plain_ms, launches=d_launches,
+                bound_ms=d_bound_ms, bound_by=d_bound_by)
 
 
 def main() -> None:
@@ -533,13 +617,14 @@ def main() -> None:
     from bench import make_batch
     from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
-        cuda_cc, cuda_kernels, cuda_thin)
+        cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
+        denoise)
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.components import (
         clean_mask)
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.filters import (
         gaussian_blur)
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.histogram import (
-        percentile_stretch)
+        clahe, otsu_threshold_patchwise, percentile_stretch)
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
         binary_erode, binary_opening)
     from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
@@ -606,7 +691,11 @@ def main() -> None:
     inp = clahe_in[0][1]
     clahe_ms = time_ms(lambda: cuda_kernels.clahe_cuda(inp, 2.5, 8), 20)
     clahe_plain_ms = time_ms(lambda: cuda_kernels.clahe_plain(inp, 2.5, 8), 5)
-    print(f"  time per call: kernel {clahe_ms:.4f} ms, plain {clahe_plain_ms:.4f} ms")
+    npx = x.numel()
+    # image in, image out; per pixel the bin, four LUT reads and the blend
+    clahe_bound = bound(8.0 * npx, 15.0 * npx)
+    print(f"  time per call: kernel {clahe_ms:.4f} ms, plain {clahe_plain_ms:.4f} ms, "
+          f"bound {clahe_bound[0]:.4f} ms ({clahe_bound[1]})")
 
     print("kernel B (CC label + filter):")
     binary_smooth = smooth_fingerprint_skeleton(res.binary.float())
@@ -631,8 +720,12 @@ def main() -> None:
         binary_smooth, "clean", 1, min_size=64, max_size=80), 20)
     cc_plain_ms = time_ms(lambda: cuda_cc.cc_filter_plain(
         binary_smooth, "clean", 1, min_size=64, max_size=80), 3)
+    # mask in, mask out; per label pass about 10 operations per pixel
+    # (neighbour tests, the union, the tally, the keep test)
+    cc_bound = bound(2.0 * npx, 20.0 * npx)
     print(f"  time per clean(64, 80) conn1 call: kernel {cc_ms:.4f} ms, "
-          f"plain {cc_plain_ms:.4f} ms")
+          f"plain {cc_plain_ms:.4f} ms, bound {cc_bound[0]:.4f} ms "
+          f"({cc_bound[1]})")
 
     print("kernel C (Zhang-Suen + prune):")
     gated = clean_mask(binary_smooth, 64, 80, connectivity=1) & (
@@ -643,7 +736,128 @@ def main() -> None:
                       lambda: cuda_thin.zs_thin_plain(gated, 128, prune))
     thin_ms = time_ms(lambda: cuda_thin.zs_thin_cuda(gated, 128, True), 20)
     thin_plain_ms = time_ms(lambda: cuda_thin.zs_thin_plain(gated, 128, True), 3)
-    print(f"  time per call: kernel {thin_ms:.4f} ms, plain {thin_plain_ms:.4f} ms")
+    thin_bound = bound(2.0 * npx, thinning_work(gated))
+    print(f"  time per call: kernel {thin_ms:.4f} ms, plain {thin_plain_ms:.4f} ms, "
+          f"bound {thin_bound[0]:.4f} ms ({thin_bound[1]})")
+
+    print("kernel E (non-local means):")
+    nlm_err = 0.0
+    for prec, nb in (("bf16", BATCH), ("f32", 16)):
+        inp = res.normalized[:nb]
+        a = cuda_nlm.nlm_denoise_cuda(inp, precision=prec)
+        b = denoise.nlm_denoise_plain(inp, precision=prec)
+        torch.cuda.synchronize()
+        d = (a - b).abs()
+        err = float(d.max())
+        off = int((d > 1e-6).sum())
+        print(f"  {prec}, {nb} images: max|d| {err:.3g}, pixels off by > 1e-6 "
+              f"{off} / {d.numel()}, pixels that differ {int((d > 0).sum())}")
+        if not torch.isfinite(a).all() or err > NLM_ATOL \
+                or off > NLM_MAX_OFF * d.numel():
+            fail(f"NLM {prec} outside tolerance")
+        nlm_err = max(nlm_err, err)
+    nlm_ms = time_ms(lambda: cuda_nlm.nlm_denoise_cuda(res.normalized), 5)
+    nlm_plain_ms = time_ms(lambda: denoise.nlm_denoise_plain(res.normalized), 2)
+    # image in, image out; per pixel and offset: difference, square, 6 + 6
+    # template adds, scale, exp, weighted sample, two accumulations
+    nlm_bound = bound(8.0 * npx, 20.0 * 441 * npx)
+    print(f"  time per call: kernel {nlm_ms:.4f} ms, plain {nlm_plain_ms:.4f} ms, "
+          f"bound {nlm_bound[0]:.4f} ms ({nlm_bound[1]})")
+
+    print("kernel F (Sauvola + patch Otsu):")
+    img_eq = clahe(_quantize_u8(res.segmented), clip_limit=2.5, grid=8)
+    fg = cuda_binarize.binarize_foreground_cuda(img_eq)
+    fg_plain = cuda_binarize.binarize_foreground_plain(img_eq)
+    fg_cpu = cuda_binarize.binarize_foreground_plain(img_eq[:4].cpu())
+    torch.cuda.synchronize()
+    f_bad = int((fg != fg_plain).sum())
+    f_bad_cpu = int((fg[:4].cpu() != fg_cpu).sum())
+    print(f"  hybrid: mismatches {f_bad} / {fg.numel()} against the twin on the "
+          f"card, {f_bad_cpu} / {fg_cpu.numel()} against the twin on the CPU "
+          f"(4 images); foreground {int(fg.sum())}")
+    if f_bad > F_MAX_MISMATCH * fg.numel() \
+            or f_bad_cpu > F_MAX_MISMATCH * fg_cpu.numel():
+        fail("kernel F differs from its plain version beyond the bound")
+    if not 0 < int(fg.sum()) < fg.numel():
+        fail("kernel F comparison is trivial")
+    # why the port divides a bin index by a tensor: on CUDA, PyTorch turns a
+    # division by a Python scalar into a multiplication by its reciprocal
+    thr = otsu_threshold_patchwise(img_eq, 32)
+    bins = torch.round(thr * 255.0)
+    flips = int(((img_eq < thr) != (img_eq < bins / 255.0)).sum())
+    print(f"  pixels that `x < bin / 255` decides otherwise on this card when "
+          f"the division is by a Python scalar: {flips} / {fg.numel()} "
+          f"(thresholds that differ: {int((thr != bins / 255.0).sum())})")
+    s_bad = int((cuda_binarize.sauvola_cuda(img_eq)
+                 != cuda_binarize.sauvola_plain(img_eq)).sum())
+    print(f"  Sauvola alone: mismatches {s_bad} / {fg.numel()}")
+    if s_bad > F_MAX_MISMATCH * fg.numel():
+        fail("kernel F (Sauvola alone) differs beyond the bound")
+    f_ms = time_ms(lambda: cuda_binarize.binarize_foreground_cuda(img_eq), 20)
+    f_plain_ms = time_ms(
+        lambda: cuda_binarize.binarize_foreground_plain(img_eq), 3)
+    # float image in, byte mask out; per pixel two separable 25-tap box
+    # means (x and x*x: 4 passes of 25 multiplies and 24 adds), the
+    # threshold, and its share of the patch's histogram and Otsu scan
+    f_bound = bound(5.0 * npx, 215.0 * npx)
+    print(f"  time per call: kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
+          f"bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+    sv_ms = time_ms(lambda: cuda_binarize.sauvola_cuda(img_eq), 20)
+    sv_plain_ms = time_ms(lambda: cuda_binarize.sauvola_plain(img_eq), 3)
+    sv_bound = bound(5.0 * npx, 212.0 * npx)      # F without the Otsu share
+    print(f"  Sauvola alone, time per call: kernel {sv_ms:.4f} ms, plain "
+          f"{sv_plain_ms:.4f} ms, bound {sv_bound[0]:.4f} ms ({sv_bound[1]})")
+
+    print("kernel B alone, per mode (K6 is fill_holes on the object-filtered mask):")
+    kept = cuda_cc.cc_filter_cuda(fg, "remove_small", 1, min_size=80)
+    compare_exact("fill_holes(150) conn1 on the object-filtered mask",
+                  lambda: cuda_binarize.fill_holes_phase2(kept),
+                  lambda: cuda_cc.cc_filter_plain(kept, "fill_holes", 1,
+                                                  max_size=150))
+    cleaned = cuda_binarize.fill_holes_phase2(kept)
+    one_pass = bound(2.0 * npx, 10.0 * npx)
+    cc_modes = {}
+    for mname, kern, plain in (
+            ("remove_small(80) conn1",
+             lambda: cuda_cc.cc_filter_cuda(fg, "remove_small", 1, min_size=80),
+             lambda: cuda_cc.cc_filter_plain(fg, "remove_small", 1, min_size=80)),
+            ("fill_holes(150) conn1",
+             lambda: cuda_cc.cc_filter_cuda(kept, "fill_holes", 1, max_size=150),
+             lambda: cuda_cc.cc_filter_plain(kept, "fill_holes", 1, max_size=150)),
+            ("reach conn2",
+             lambda: cuda_cc.cc_filter_cuda(opened, "reach", 2, marker=marker),
+             lambda: cuda_cc.cc_filter_plain(opened, "reach", 2, marker=marker)),
+            ("largest conn2",
+             lambda: cuda_cc.cc_filter_cuda(binary_smooth, "largest", 2),
+             lambda: cuda_cc.cc_filter_plain(binary_smooth, "largest", 2)),
+            ("cc_label conn2",
+             lambda: cuda_cc.cc_label_cuda(binary_smooth, 2),
+             lambda: cuda_cc.cc_label_plain(binary_smooth, 2))):
+        cc_modes[mname] = (time_ms(kern, 20), time_ms(plain, 3))
+        # cc_label writes int32 labels instead of a byte mask
+        b_ms, b_by = bound(5.0 * npx, 10.0 * npx) if "label" in mname else one_pass
+        print(f"  {mname}: kernel {cc_modes[mname][0]:.4f} ms, plain "
+              f"{cc_modes[mname][1]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    print("kernel G (open -> erode -> reconstruct):")
+    compare_exact("binarize tail on the cleaned mask",
+                  lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned),
+                  lambda: cuda_morph.open_erode_reconstruct_plain(cleaned))
+    if not bool((cuda_morph.open_erode_reconstruct_cuda(cleaned) == res.binary).all()):
+        fail("F -> B -> G composed by hand differs from the path's binary mask")
+    g_ms = time_ms(lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned), 20)
+    g_plain_ms = time_ms(
+        lambda: cuda_morph.open_erode_reconstruct_plain(cleaned), 3)
+    g_bound = bound(2.0 * npx, reconstruct_work(cleaned))
+    print(f"  time per call: kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, "
+          f"bound {g_bound[0]:.4f} ms ({g_bound[1]})")
+    compare_exact("unsplit entry point (F -> B clean -> G) against the split",
+                  lambda: cuda_binarize.binarize_fused(img_eq),
+                  lambda: cuda_binarize.binarize_fused_split(img_eq))
+    print("  F -> B -> G per call: unsplit (B clean) "
+          f"{time_ms(lambda: cuda_binarize.binarize_fused(img_eq), 10):.4f} ms, "
+          "split (B remove_small, B fill_holes) "
+          f"{time_ms(lambda: cuda_binarize.binarize_fused_split(img_eq), 10):.4f} ms")
 
     print("small random shapes:")
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -662,6 +876,24 @@ def main() -> None:
         compare_exact(f"thin {h}x{w}",
                       lambda: cuda_thin.zs_thin_cuda(rnd, 128, True),
                       lambda: cuda_thin.zs_thin_plain(rnd, 128, True))
+        dense = (torch.rand((8, h, w), generator=g) < 0.8).to(dev)
+        compare_exact(f"open/erode/reconstruct {h}x{w}",
+                      lambda: cuda_morph.open_erode_reconstruct_cuda(dense),
+                      lambda: cuda_morph.open_erode_reconstruct_plain(dense))
+        img = torch.rand((4, h, w), generator=g).to(dev)
+        for prec in ("bf16", "f32"):
+            d = (cuda_nlm.nlm_denoise_cuda(img, precision=prec)
+                 - denoise.nlm_denoise_plain(img, precision=prec)).abs()
+            print(f"  nlm {prec} {h}x{w}: max|d| {float(d.max()):.3g}")
+            if not float(d.max()) <= NLM_ATOL:
+                fail("NLM outside tolerance at a small shape")
+        compare_exact(f"sauvola {h}x{w}",
+                      lambda: cuda_binarize.sauvola_cuda(img),
+                      lambda: cuda_binarize.sauvola_plain(img))
+        if h % 32 == 0 and w % 32 == 0:
+            compare_exact(f"binarize front {h}x{w}",
+                          lambda: cuda_binarize.binarize_foreground_cuda(img),
+                          lambda: cuda_binarize.binarize_foreground_plain(img))
         if h % 8 == 0 and w % 8 == 0:
             img = torch.rand((4, h, w), generator=g).to(dev)
             d = (cuda_kernels.clahe_cuda(img, 2.0, 8)
@@ -681,7 +913,8 @@ def main() -> None:
     first_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     print(f"  launches in one run: {launches}")
-    expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0}
+    expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
+                "binarize": 1, "morph": 1}
     if launches != expected:
         fail(f"launch counts {launches}, expected {expected}")
     iters = 3
@@ -698,6 +931,16 @@ def main() -> None:
     stage_ms = stage_times(x)
     print("  stage ms (one synchronized run): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stage_ms.items()))
+
+    # device busy share of one run: host clock against the summed device
+    # time of the operations the same run issues under torch.profiler
+    _, host_s = wall_s(lambda: run_path(x))
+    ops = profile_ops(lambda: run_path(x))
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    print(f"  one run: {host_s * 1e3:.1f} ms on the host clock; under "
+          f"torch.profiler {dev_ms:.1f} ms of device time in {len(ops)} device "
+          f"ops -> busy {dev_ms / (host_s * 1e3):.1%}")
+    print("  top device ops: " + top_ops(ops, 8))
 
     # output checks
     if res.skeleton.shape != x.shape or res.skeleton.dtype != torch.bool:
@@ -736,31 +979,40 @@ def main() -> None:
     d = matcher_phases(dev, build, card, msb, run_path)
 
     src = f"{PKG}/csrc"
+    jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
+
+    def entry(name, source, replaces, count, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": f"{src}/{source}",
+                "replaces": replaces, "launches": count, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
+    # library_ms is null throughout: no single PyTorch call computes CLAHE,
+    # a component filter, thinning, hypothesis scoring, NLM, the hybrid
+    # threshold or the reconstruction tail
     kernels = [
-        {"name": "clahe", "route": "cuda", "source": f"{src}/clahe.cu",
-         "replaces": "multimodal_biometric_fingerprints_palms_tpu/ops/"
-                     "pallas_kernels.py:1460",
-         "launches": launches["clahe"], "max_abs_err": clahe_err,
-         "ms": clahe_ms, "plain_ms": clahe_plain_ms},
-        {"name": "cc_label_filter", "route": "cuda", "source": f"{src}/cc.cu",
-         "replaces": "multimodal_biometric_fingerprints_palms_tpu/ops/"
-                     "pallas_cc.py:552",
-         "launches": launches["cc"], "max_abs_err": 0.0,
-         "ms": cc_ms, "plain_ms": cc_plain_ms},
-        {"name": "zs_thin", "route": "cuda", "source": f"{src}/thin.cu",
-         "replaces": "multimodal_biometric_fingerprints_palms_tpu/ops/"
-                     "pallas_bitpack.py:382",
-         "launches": launches["thin"], "max_abs_err": 0.0,
-         "ms": thin_ms, "plain_ms": thin_plain_ms},
-        {"name": "hypothesis_scores", "route": "cuda",
-         "source": f"{src}/match.cu",
-         "replaces": "multimodal_biometric_fingerprints_palms_tpu/matching/"
-                     "pallas_match.py:218",
-         "launches": d["launches"], "max_abs_err": d["err"],
-         "ms": d["ms"], "plain_ms": d["plain_ms"]},
+        entry("clahe", "clahe.cu", f"{jax_ops}/pallas_kernels.py:1460",
+              launches["clahe"], clahe_err, clahe_ms, clahe_plain_ms,
+              clahe_bound),
+        entry("cc_label_filter", "cc.cu", f"{jax_ops}/pallas_cc.py:552",
+              launches["cc"], 0.0, cc_ms, cc_plain_ms, cc_bound),
+        entry("zs_thin", "thin.cu", f"{jax_ops}/pallas_bitpack.py:382",
+              launches["thin"], 0.0, thin_ms, thin_plain_ms, thin_bound),
+        entry("hypothesis_scores", "match.cu",
+              "multimodal_biometric_fingerprints_palms_tpu/matching/"
+              "pallas_match.py:218", d["launches"], d["err"], d["ms"],
+              d["plain_ms"], (d["bound_ms"], d["bound_by"])),
+        entry("nlm_denoise", "nlm.cu", f"{jax_ops}/pallas_kernels.py:794",
+              launches["nlm"], nlm_err, nlm_ms, nlm_plain_ms, nlm_bound),
+        entry("binarize_front", "binarize.cu",
+              f"{jax_ops}/pallas_kernels.py:1118", launches["binarize"],
+              float(f_bad > 0), f_ms, f_plain_ms, f_bound),
+        entry("open_erode_reconstruct", "morph.cu",
+              f"{jax_ops}/pallas_bitpack.py:329", launches["morph"], 0.0,
+              g_ms, g_plain_ms, g_bound),
     ]
     for k in kernels:
-        for key in ("ms", "plain_ms", "max_abs_err"):
+        for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']} {key} not finite")
         if k["launches"] <= 0:

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels into one shared library and loads it.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a plain-C-interface ``.so`` on first use, then bound with
-``ctypes`` (pointers and the stream as ``c_void_p``). The library lands in
+(``sm_90a``), one ``nvcc -c`` per source and all started together, linked
+into a plain-C-interface ``.so`` on first use, then bound with ``ctypes``
+(pointers and the stream as ``c_void_p``). The library lands in
 ``build/torch_kernels/`` at the root of the checkout (git-ignored), named by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Nothing is compiled or loaded at import time.
@@ -26,11 +27,14 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # Every kernel source of the port; each is compiled into the one library.
-SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu", "nlm.cu",
+           "binarize.cu", "morph.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-LAUNCHES = {"clahe": 0, "cc": 0, "thin": 0, "match": 0}
+LAUNCHES = {"clahe": 0, "cc": 0, "thin": 0, "match": 0, "nlm": 0,
+            "binarize": 0, "morph": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +55,12 @@ _SIGNATURES = {
     # sigma_d2, sigma_o2, use_type, min_inliers, stream
     "mbfp_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                _F, _F, _I, _I, _P),
+    # img, out, nb, h, w, template, search, inv, bf16, stream
+    "mbfp_nlm": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # img, stdmax, out, nb, h, w, win, tap, k, otsu, stream
+    "mbfp_binarize_front": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    # mask, out, nb, h, w, stream
+    "mbfp_open_erode_reconstruct": (_P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -87,16 +97,31 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in SOURCES]]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objs)]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen(c, **pipes) for c in cmds]
+        steps = [(c, p.communicate()[0], p.returncode)
+                 for c, p in zip(cmds, procs)]
+        if not any(rc for _, _, rc in steps):
+            res = subprocess.run(link, **pipes)
+            steps.append((link, res.stdout, res.returncode))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        "".join(" ".join(c) + "\n" + out for c, out, _ in steps))
+    failed = [" ".join(c) + "\n" + out for c, out, rc in steps if rc]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp.replace(so)
     return so
 

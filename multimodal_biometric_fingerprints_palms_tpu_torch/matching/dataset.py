@@ -35,7 +35,15 @@ class MinutiaeDataset(NamedTuple):
 
 
 def load_dataset(minutiae_base: str | Path, max_per_user: int | None = None,
-                 k: int = 64, device="cpu") -> MinutiaeDataset:
+                 k: int = 64, device=None) -> MinutiaeDataset:
+    """Load every ``*_minutiae.json`` under ``minutiae_base`` onto ``device``
+    (default: the card; pass ``"cpu"`` to run there). Raises if the card is
+    asked for, by default or by name, and CUDA is not available."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "load_dataset loads onto a CUDA device by default and CUDA is "
+            "not available; pass device='cpu' to run on the CPU")
     base = Path(minutiae_base)
     files = sorted(base.rglob("*_minutiae.json"))
 

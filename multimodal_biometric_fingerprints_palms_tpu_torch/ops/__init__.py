@@ -1,6 +1,8 @@
-"""Image ops of the port. Plain PyTorch, except the three CUDA kernels:
-CLAHE (``cuda_kernels``), connected components (``cuda_cc``) and
-Zhang-Suen thinning (``cuda_thin``), each beside its plain twin."""
+"""Image ops of the port. Plain PyTorch, except the CUDA kernels: CLAHE
+(``cuda_kernels``), connected components (``cuda_cc``), Zhang-Suen thinning
+(``cuda_thin``), non-local means (``cuda_nlm``, twin in ``denoise``), the
+binarize front (``cuda_binarize``) and its open/erode/reconstruct tail
+(``cuda_morph``), each beside its plain twin."""
 
 from .filters import (
     conv2d_same, gaussian_kernel1d, gaussian_blur, gaussian_blur_cv,
@@ -10,7 +12,12 @@ from .histogram import (
     histogram256, quantiles_bisect, quantiles_u8, percentile_stretch,
     otsu_threshold, otsu_threshold_patchwise, clahe,
 )
-from .denoise import nlm_denoise
+from .denoise import nlm_denoise, nlm_denoise_blocked, nlm_denoise_sym
+from .cuda_binarize import (
+    binarize_foreground, binarize_fused, binarize_fused_split,
+    fill_holes_phase2, sauvola_binarize,
+)
+from .cuda_morph import open_erode_reconstruct
 from .morphology import (
     ellipse_se, binary_dilate, binary_erode, binary_opening, binary_closing,
     binary_close_open_packed, binary_reconstruction_by_dilation,

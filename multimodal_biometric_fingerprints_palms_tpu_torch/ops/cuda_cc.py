@@ -209,3 +209,25 @@ def cc_filter(mask: torch.Tensor, mode: str, connectivity: int = 2,
                              min_size, max_size,
                              None if mk is None else mk.to(torch.bool))
     return out.reshape(shape)
+
+
+def fill_holes_split(mask: torch.Tensor, max_size: int,
+                     connectivity: int = 1,
+                     max_iters: int = 512) -> torch.Tensor:
+    """remove_small_holes(max_size): the entry point named after the JAX
+    package's one-canonical-component split filter. That kernel took the
+    border-connected background as packed planes so the TPU would not relax
+    it per image; kernel B's union-find has no such cost, so this is B's
+    "fill_holes" mode (``max_iters`` kept for signature parity only)."""
+    del max_iters
+    return cc_filter(mask, "fill_holes", connectivity, max_size=max_size)
+
+
+def remove_small_split(mask: torch.Tensor, min_size: int,
+                       connectivity: int = 1,
+                       max_iters: int = 512) -> torch.Tensor:
+    """remove_small_objects(min_size): the entry point named after the JAX
+    package's centre-seeded split filter; kernel B's "remove_small" mode
+    (``max_iters`` kept for signature parity only)."""
+    del max_iters
+    return cc_filter(mask, "remove_small", connectivity, min_size=min_size)

@@ -5,15 +5,23 @@ reflect-padded 21x21 search window and a 7x7 template. In the default
 ``precision="bf16"`` the per-offset SSD and weights round to bfloat16 at
 the same points as the JAX package's form (input, difference, square, the
 SSD after each box axis, the weight after exp, the weighted sample) and
-accumulate in float32. The 21 column offsets of each search row run as one
-batched tensor. Plain PyTorch in this slice: the JAX package's NLM kernel
-is not on the ported configuration's path.
+accumulate in float32.
+
+``nlm_denoise`` dispatches on the tensor's device: CPU tensors run the
+plain twin ``nlm_denoise_plain`` (the 21 column offsets of each search row
+as one batched tensor), CUDA tensors launch kernel E
+(``ops.cuda_nlm.nlm_denoise_cuda``, ``csrc/nlm.cu``); anything else raises.
+``nlm_denoise_sym`` and ``nlm_denoise_blocked`` are the JAX package's two
+kernel entry points; on the card both are kernel E, which visits every
+offset in the twin's order and so needs neither the mirror-offset reuse nor
+the border-ring recompute that shaped the TPU forms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .cuda_nlm import nlm_denoise_cuda
 from .filters import _pad_axis
 
 
@@ -33,11 +41,11 @@ def _box_sum(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
     return out
 
 
-def nlm_denoise(x: torch.Tensor, h: float = 10.0, template_window: int = 7,
-                search_window: int = 21,
-                precision: str = "bf16") -> torch.Tensor:
-    """Non-local means over (..., H, W) in [0,1]; ``precision`` "bf16"
-    (default) or "f32"."""
+def nlm_denoise_plain(x: torch.Tensor, h: float = 10.0,
+                      template_window: int = 7, search_window: int = 21,
+                      precision: str = "bf16") -> torch.Tensor:
+    """Plain PyTorch twin of kernel E over (..., H, W) in [0,1];
+    ``precision`` "bf16" (default) or "f32"."""
     rnd = _bf16 if precision == "bf16" else (lambda t: t)
     hn = h / 255.0
     r = search_window // 2
@@ -63,3 +71,31 @@ def nlm_denoise(x: torch.Tensor, h: float = 10.0, template_window: int = 7,
             acc = acc + term[..., dx, :, :]
             wacc = wacc + wgt[..., dx, :, :]
     return acc / torch.clamp(wacc, min=1e-8)
+
+
+def nlm_denoise(x: torch.Tensor, h: float = 10.0, template_window: int = 7,
+                search_window: int = 21,
+                precision: str = "bf16") -> torch.Tensor:
+    """Non-local means over (..., H, W) in [0,1]; ``precision`` "bf16"
+    (default) or "f32". CUDA tensors run kernel E; CPU tensors its plain
+    twin."""
+    if x.device.type == "cpu":
+        return nlm_denoise_plain(x, h, template_window, search_window,
+                                 precision)
+    return nlm_denoise_cuda(x, h, template_window, search_window, precision)
+
+
+def nlm_denoise_sym(img: torch.Tensor, h: float = 10.0, template: int = 7,
+                    search: int = 21,
+                    precision: str = "bf16") -> torch.Tensor:
+    """(B, H, W) non-local means, the entry point named after the JAX
+    package's symmetric-pair kernel (any frame size, no ring pass)."""
+    return nlm_denoise(img, h, template, search, precision)
+
+
+def nlm_denoise_blocked(img: torch.Tensor, h: float = 10.0, template: int = 7,
+                        search: int = 21,
+                        precision: str = "bf16") -> torch.Tensor:
+    """(B, H, W) non-local means, the entry point named after the JAX
+    package's offset-blocked kernel."""
+    return nlm_denoise(img, h, template, search, precision)

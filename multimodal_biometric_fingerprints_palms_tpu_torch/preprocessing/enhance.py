@@ -2,10 +2,12 @@
 normalize -> denoise -> segment -> orientation -> binarize -> smooth -> thin.
 
 Every stage consumes and produces batched (..., H, W) float32 tensors in
-[0, 1] (masks bool) on the input's device. The stages are the JAX
-package's ``use_pallas=False`` configuration: NLM and binarization as plain
-tensor code; CLAHE, connected components and thinning through the CUDA
-kernels on a CUDA device (their plain twins on the CPU).
+[0, 1] (masks bool) on the input's device. On a CUDA device the stages are
+the JAX package's kernel-backed path: CLAHE (kernel A), non-local means (E),
+the binarize front (F), connected components (B), the open/erode/reconstruct
+tail (G) and thinning (C) are hand-written CUDA kernels, chosen by each
+wrapper from the tensor's device; on the CPU the same functions run the
+kernels' plain twins. There is no switch between the two.
 """
 
 from __future__ import annotations
@@ -15,13 +17,12 @@ from typing import NamedTuple
 import torch
 
 from ..ops.components import clean_mask, convex_hull_mask, largest_component
+from ..ops.cuda_binarize import binarize_fused_split
 from ..ops.cuda_thin import zs_thin
 from ..ops.denoise import nlm_denoise
-from ..ops.filters import box_filter, gaussian_blur, gaussian_blur_cv, sobel
-from ..ops.histogram import (clahe, otsu_threshold, otsu_threshold_patchwise,
-                             percentile_stretch)
-from ..ops.morphology import (binary_close_open_packed, binary_erode,
-                              binary_opening, binary_reconstruction_by_dilation)
+from ..ops.filters import gaussian_blur, gaussian_blur_cv, sobel
+from ..ops.histogram import clahe, otsu_threshold, percentile_stretch
+from ..ops.morphology import binary_close_open_packed
 from ..ops.orientation import OrientationField, compute_orientation_field
 
 
@@ -91,33 +92,11 @@ def segment_fingerprint(img: torch.Tensor, hull_directions: int = 90
 def binarize(img: torch.Tensor) -> torch.Tensor:
     """Hybrid Sauvola + per-patch-Otsu binarization: CLAHE 2.5 -> Sauvola
     (window 25, k-map k*(1 - 0.5*std_n), k=0.25) -> per-32x32 Otsu
-    OR-refinement (patch std gate 3/255) -> clean 80/150 -> 3x3 ellipse
-    open -> erode-marker geodesic reconstruction."""
+    OR-refinement (patch std gate 3/255) -> remove objects < 80 -> fill
+    holes < 150 -> 3x3 ellipse open -> erode-marker geodesic reconstruction
+    (``ops.cuda_binarize.binarize_fused_split``)."""
     img_eq = clahe(_quantize_u8(img), clip_limit=2.5, grid=8)
-
-    win, k = 25, 0.25
-    mean = box_filter(img_eq, win)
-    sqmean = box_filter(img_eq * img_eq, win)
-    std = torch.sqrt(torch.clamp(sqmean - mean * mean, min=0.0))
-    std_n = std / (torch.amax(std, dim=(-2, -1), keepdim=True) + 1e-6)
-    k_map = k * (1.0 - 0.5 * std_n)
-    sauv = mean * (1.0 - k_map * (1.0 - std / (mean + 1e-6)))
-    binary = img_eq < sauv
-
-    patch = 32
-    thr = otsu_threshold_patchwise(img_eq, patch)
-    lead = img_eq.shape[:-2]
-    h, w = img_eq.shape[-2:]
-    blocks = img_eq.reshape(lead + (h // patch, patch, w // patch, patch))
-    centred = blocks - blocks.mean(dim=(-3, -1), keepdim=True)
-    p_std = torch.sqrt((centred * centred).mean(dim=(-3, -1)))
-    p_std = p_std.repeat_interleave(patch, dim=-1).repeat_interleave(patch, dim=-2)
-    binary = binary | ((img_eq < thr) & (p_std >= 3.0 / 255.0))
-
-    cleaned = clean_mask(binary, 80, 150, connectivity=1)
-    opened = binary_opening(cleaned, 3, shape="ellipse")
-    marker = binary_erode(opened, 3, shape="ellipse")
-    return binary_reconstruction_by_dilation(marker, opened)
+    return binarize_fused_split(img_eq, win=25, k=0.25)
 
 
 def smooth_fingerprint_skeleton(binary: torch.Tensor, sigma: float = 1.4,

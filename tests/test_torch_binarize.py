@@ -1,0 +1,137 @@
+"""Port parity for the binarize stage after CLAHE: the port's
+``ops.cuda_binarize`` / ``ops.cuda_morph`` functions and the split-filter
+entry points of ``ops.cuda_cc`` (on the CPU, the kernels' plain twins)
+against the JAX package's Pallas kernels in interpret mode, on inputs made
+from a numpy seed.
+
+Tolerances are the JAX package's own (``tests/test_pallas_kernels.py``,
+``tests/test_pallas_cc.py``): the fused binarize agrees on more than 99% of
+pixels and Sauvola alone on more than 99.9% (the TPU kernels sum the 25x25
+box as a log tree and take the patch std as e2 - e1^2, so a pixel on the
+`x < threshold` edge can flip, and a flipped pixel can move a component
+across a size limit); the mask-only functions are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from multimodal_biometric_fingerprints_palms_tpu.ops import (
+    pallas_bitpack as JB, pallas_cc as JC, pallas_kernels as JK)
+from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+    cuda_binarize as TB, cuda_cc as TC, cuda_morph as TM)
+from multimodal_biometric_fingerprints_palms_tpu_torch.ops.components import (
+    clean_mask)
+from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
+    binary_erode, binary_opening, binary_reconstruction_by_dilation)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ridge_image():
+    """The (1, 64, 128) ridge-like image on the u8 grid of
+    tests/test_pallas_kernels.py's fused-binarize test."""
+    g = np.random.default_rng(42)
+    yy, xx = np.mgrid[0:64, 0:128].astype(np.float32)
+    img = 0.5 + 0.4 * np.cos(np.hypot(yy - 30, xx - 60) / 3.0)
+    img += g.normal(0, 0.05, img.shape)
+    img = np.round(np.clip(img, 0, 1) * 255) / 255
+    return img.astype(np.float32)[None]
+
+
+def _binarize_after_clahe_unfused(img_eq):
+    """The stage as the port composed it before it had kernel F and G:
+    front -> clean 80/150 -> open -> erode marker -> reconstruction."""
+    binary = TB.binarize_foreground_plain(img_eq, 25, 0.25, 32)
+    cleaned = clean_mask(binary, 80, 150, connectivity=1)
+    opened = binary_opening(cleaned, 3, shape="ellipse")
+    marker = binary_erode(opened, 3, shape="ellipse")
+    return binary_reconstruction_by_dilation(marker, opened)
+
+
+@pytest.mark.parametrize("name", ["binarize_fused_split", "binarize_fused"])
+def test_binarize_fused_matches_pallas(ridge_image, name):
+    ref = np.asarray(getattr(JK, name + "_pallas")(
+        jnp.asarray(ridge_image), interpret=True))
+    x = torch.from_numpy(ridge_image)
+    got = getattr(TB, name)(x)
+    assert got.dtype == torch.bool and ref.dtype == np.bool_
+    agree = (got.numpy() == ref).mean()
+    assert agree > 0.99, agree
+    assert 0.2 < got.float().mean() < 0.8          # not a trivial mask
+    assert torch.equal(got, _binarize_after_clahe_unfused(x))
+
+
+def test_sauvola_binarize_matches_pallas():
+    x = np.random.default_rng(42).random((2, 64, 128)).astype(np.float32)
+    ref = np.asarray(JK.sauvola_binarize_pallas(jnp.asarray(x), interpret=True))
+    got = TB.sauvola_binarize(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    assert set(np.unique(got.numpy())) <= {0.0, 1.0}
+    assert (got.numpy() == ref).mean() > 0.999
+
+
+def _masks(kind):
+    g = np.random.default_rng(7)
+    h, w = 32, 64
+    yy, xx = np.mgrid[:h, :w]
+    ridge = np.cos(np.sqrt((yy - 16.0) ** 2 + (xx - 32.0) ** 2) / 2.5) > 0.0
+    if kind == "ridges":
+        return np.stack([ridge, ~ridge, ridge & (g.random((h, w)) > 0.1)])
+    return np.stack([g.random((h, w)) > 0.3, g.random((h, w)) > 0.15,
+                     np.zeros((h, w), bool), np.ones((h, w), bool)])
+
+
+@pytest.mark.parametrize("kind", ["ridges", "noise"])
+def test_open_erode_reconstruct_matches_pallas(kind):
+    m = _masks(kind)
+    ref = np.asarray(JB.open_erode_reconstruct_packed(jnp.asarray(m),
+                                                      interpret=True))
+    got = TM.open_erode_reconstruct(torch.from_numpy(m))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _split_batch():
+    """The batch of tests/test_pallas_cc.py's split tests: noise, ridges, a
+    speck at the centre beside a big off-centre component, empty, full."""
+    g = np.random.default_rng(42)
+    h, w = 32, 64
+    yy, xx = np.mgrid[:h, :w]
+    ridge = np.cos(np.sqrt((yy - 16.0) ** 2 + (xx - 32.0) ** 2) / 2.5) > 0.0
+    speck = np.zeros((h, w), bool)
+    speck[15:17, 32] = True
+    speck[2:20, 2:8] = True
+    return np.stack([g.random((h, w)) > 0.5, ridge, speck,
+                     np.zeros((h, w), bool), np.ones((h, w), bool)])
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+def test_remove_small_split_matches_pallas(conn):
+    m = _split_batch()
+    ref = np.asarray(JC.remove_small_split_pallas(
+        jnp.asarray(m), 10, connectivity=conn, interpret=True))
+    got = TC.remove_small_split(torch.from_numpy(m), 10, connectivity=conn)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+def test_fill_holes_split_matches_pallas(conn):
+    """The JAX kernel is handed the border-connected background as packed
+    planes; the port's entry point needs no such input."""
+    m = _split_batch()
+    reach1 = JB.border_reach_packed(jnp.asarray(~m), connectivity=conn,
+                                    interpret=True, packed=True, union=False)
+    ref = np.asarray(JC.fill_holes_split_pallas(
+        jnp.asarray(m), reach1, 25, connectivity=conn, interpret=True))
+    got = TC.fill_holes_split(torch.from_numpy(m), 25, connectivity=conn)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got.numpy() != m).any()                # some hole was filled
+
+
+def test_fill_holes_phase2_is_the_4_connected_hole_fill():
+    m = torch.from_numpy(_split_batch())
+    assert torch.equal(TB.fill_holes_phase2(m, 25),
+                       TC.cc_filter(m, "fill_holes", 1, max_size=25))

@@ -341,7 +341,7 @@ def test_match_pair_indices_matches_jax_route(cascade):
 @pytest.fixture(scope="module")
 def parity_datasets():
     return (jds.load_dataset(FIXTURES, max_per_user=4),
-            tds.load_dataset(FIXTURES, max_per_user=4))
+            tds.load_dataset(FIXTURES, max_per_user=4, device="cpu"))
 
 
 def test_load_dataset_and_pairs_match_jax(parity_datasets):
@@ -361,7 +361,7 @@ def test_load_dataset_and_pairs_match_jax(parity_datasets):
     for peers, seed in ((100, 42), (3, 7)):
         np.testing.assert_array_equal(tds.impostor_pairs(td, peers, seed),
                                       jds.impostor_pairs(jd, peers, seed))
-    small = tds.load_dataset(FIXTURES, max_per_user=1, k=32)
+    small = tds.load_dataset(FIXTURES, max_per_user=1, k=32, device="cpu")
     assert small.stacked.xy.shape == (8, 32, 2)
 
 

@@ -16,7 +16,8 @@ import torch
 
 from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
-    cuda_cc, cuda_kernels, cuda_thin)
+    cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
+    denoise)
 
 torch.set_num_threads(1)
 
@@ -69,6 +70,27 @@ PORT_MODULE = {
     ("matching.ransac", name): "matching.cuda_match"
     for name in ("match_minutiae_pair", "match_pairs_batch",
                  "screen_promote_batch")}
+# The JAX package's kernel entry points and the port's functions named
+# after them: same parameters and defaults, without ``interpret`` (a CPU
+# tensor takes the plain twin). ``fill_holes_split`` is not listed: the JAX
+# kernel is handed the border-connected background as packed planes, which
+# the port's entry point computes no counterpart of.
+KERNEL_ENTRY = {
+    ("ops.pallas_kernels", "nlm_denoise_pallas_sym"):
+        ("ops.denoise", "nlm_denoise_sym"),
+    ("ops.pallas_kernels", "nlm_denoise_pallas_blocked"):
+        ("ops.denoise", "nlm_denoise_blocked"),
+    ("ops.pallas_kernels", "sauvola_binarize_pallas"):
+        ("ops.cuda_binarize", "sauvola_binarize"),
+    ("ops.pallas_kernels", "binarize_fused_pallas"):
+        ("ops.cuda_binarize", "binarize_fused"),
+    ("ops.pallas_kernels", "binarize_fused_split_pallas"):
+        ("ops.cuda_binarize", "binarize_fused_split"),
+    ("ops.pallas_bitpack", "open_erode_reconstruct_packed"):
+        ("ops.cuda_morph", "open_erode_reconstruct"),
+    ("ops.pallas_cc", "remove_small_split_pallas"):
+        ("ops.cuda_cc", "remove_small_split"),
+}
 # The port keeps no use_pallas switch (the kernels are chosen by the
 # tensor's device) and no anchors=False screen ablation switch.
 DROPPED = {"use_pallas", "anchors"}
@@ -117,6 +139,15 @@ def test_signatures_match_jax(module):
                 == _params(getattr(tm, name), ADDED)), f"{module}.{name}"
 
 
+@pytest.mark.parametrize("jax_name", sorted(n for _, n in KERNEL_ENTRY))
+def test_kernel_entry_points_match_jax(jax_name):
+    (jmod, jname), (tmod, tname) = next(
+        kv for kv in KERNEL_ENTRY.items() if kv[0][1] == jax_name)
+    jfn = getattr(importlib.import_module(f"{JAX_PKG}.{jmod}"), jname)
+    tfn = getattr(importlib.import_module(f"{PORT_PKG}.{tmod}"), tname)
+    assert _params(jfn, {"interpret"}) == _params(tfn)
+
+
 def test_named_tuples_match_jax():
     pairs = [("features.minutiae", "MinutiaeSet"),
              ("ops.orientation", "OrientationField"),
@@ -158,6 +189,14 @@ def test_kernel_sources_exist():
     assert build.SOURCES
     assert "match.cu" in build.SOURCES and "match" in build.LAUNCHES
     assert "mbfp_hypothesis_scores" in build._SIGNATURES
+    for source, counter, entry in (
+            ("nlm.cu", "nlm", "mbfp_nlm"),
+            ("binarize.cu", "binarize", "mbfp_binarize_front"),
+            ("morph.cu", "morph", "mbfp_open_erode_reconstruct")):
+        assert source in build.SOURCES and counter in build.LAUNCHES
+        assert entry in build._SIGNATURES
+        assert f'extern "C" int {entry}(' in (
+            build.CSRC_DIR / source).read_text()
     for name in build.SOURCES:
         assert (build.CSRC_DIR / name).is_file(), name
     # the build directory is git-ignored
@@ -170,6 +209,10 @@ def test_launch_counters_untouched_on_cpu():
     cuda_cc.cc_filter(m, "clean", 1, min_size=3, max_size=3)
     cuda_thin.zs_thin(m)
     cuda_kernels.clahe(m.float(), 2.0, 8)
+    denoise.nlm_denoise(m.float(), search_window=5)
+    cuda_binarize.sauvola_binarize(m.float(), win=5)
+    cuda_binarize.binarize_fused_split(torch.rand((1, 32, 32)))
+    cuda_morph.open_erode_reconstruct(m)
     assert build.LAUNCHES == before
 
 
@@ -178,12 +221,35 @@ def test_launch_counters_untouched_on_cpu():
     lambda t: cuda_cc.cc_filter(t, "largest", 2),
     lambda t: cuda_cc.cc_label(t, 2),
     lambda t: cuda_thin.zs_thin(t),
+    lambda t: denoise.nlm_denoise(t.float()),
+    lambda t: cuda_nlm.nlm_denoise_cuda(t.float()),
+    lambda t: denoise.nlm_denoise_sym(t.float()),
+    lambda t: denoise.nlm_denoise_blocked(t.float(), precision="f32"),
+    lambda t: cuda_binarize.binarize_foreground(t.float()),
+    lambda t: cuda_binarize.sauvola_binarize(t.float()),
+    lambda t: cuda_morph.open_erode_reconstruct(t),
+    lambda t: cuda_cc.fill_holes_split(t, 5),
+    lambda t: cuda_cc.remove_small_split(t, 5),
 ])
 def test_wrappers_raise_off_cpu_without_cuda(call):
     """A tensor that is not on the CPU never takes the plain path."""
     t = torch.zeros((1, 16, 16), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(t)
+
+
+def test_load_dataset_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """Entry points run on the card unless the caller asks for the CPU."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
+        load_dataset)
+    assert inspect.signature(load_dataset).parameters["device"].default is None
+    if torch.cuda.is_available():
+        assert load_dataset(tmp_path).stacked.xy.device.type == "cuda"
+    else:
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                load_dataset(tmp_path, device=device)
+    assert load_dataset(tmp_path, device="cpu").stacked.xy.shape == (0, 64, 2)
 
 
 def _hypothesis_args(device, pnum=2, k=16, h=8):
