@@ -11,7 +11,8 @@ and drives both paths of the port on the card:
   (open/erode/reconstruct) against their plain PyTorch twins at the main
   path's shapes (batch 128 of 320x256 images, on real stage inputs), then
   drives ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
-  ``postprocess_minutiae`` on ``bench.make_batch(128)``, asserts that it
+  ``postprocess_minutiae`` on ``make_batch(128)`` (the port's copy of the
+  JAX benchmark's input, ``utils/synthetic.py``), asserts that it
   went through every kernel, and checks its output;
 - the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
   plain twin at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
@@ -97,35 +98,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def blob_prints(seeds, phases=None, h: int = 320, w: int = 256):
-    """Synthetic prints with blob constellations that leave >= 8 minutiae
-    after quality filtering: the generator ``_print(seed, phase)`` of
-    tests/test_end_to_end_eer.py, one print per seed (bench.make_batch's
-    concentric prints keep only 2-7, in the JAX package and in the port
-    alike). ``phases`` shifts the ridge pattern, as a second session."""
-    import numpy as np
-    seeds = list(seeds)
-    phases = [0.0] * len(seeds) if phases is None else list(phases)
-    out = np.empty((len(seeds), h, w), np.float32)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    r = np.sqrt(((yy - h / 2) / 1.1) ** 2 + (xx - w / 2) ** 2)
-    ang = np.arctan2(yy - h / 2, xx - w / 2)
-    ell = (((yy - h / 2) / (0.42 * h)) ** 2
-           + ((xx - w / 2) / (0.40 * w)) ** 2) < 1
-    for i, (seed, phase) in enumerate(zip(seeds, phases)):
-        ridges = 0.5 + 0.5 * np.cos(r / 4.5 + 2.0 * np.sin(3 * ang) + phase)
-        g = np.random.default_rng(seed)
-        blobs = np.zeros((h, w), np.float32)
-        for _ in range(110):
-            by, bx = g.integers(40, h - 40), g.integers(40, w - 40)
-            rr = g.integers(2, 6)
-            blobs[by - rr:by + rr, bx - rr:bx + rr] = 1.0
-        img = np.where(ell, 1.0 - 0.8 * ridges * (1 - 0.9 * blobs), 0.95)
-        img = np.clip(img + g.normal(0, 0.02, (h, w)), 0, 1) * 255
-        out[i] = img.astype(np.uint8).astype(np.float32) / 255.0
-    return out
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -255,6 +227,85 @@ def stage_times(x) -> dict:
     ms = timed("extract", extract_minutiae, sk)
     timed("postprocess", postprocess_minutiae, ms, sk)
     return out
+
+
+def compare_exact(name: str, kern, plain) -> None:
+    """Fail unless the kernel's output equals its plain version's."""
+    import torch
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    bad = int((a != b).sum())
+    print(f"  {name}: mismatches {bad} / {a.numel()}")
+    if bad:
+        fail(f"{name}: kernel differs from its plain version")
+
+
+def kernel_b_adversarial(dev) -> None:
+    """Kernel B against its twin where a tiled labelling is most likely to
+    break: components that cross every tile seam many times (spiral,
+    serpentine), the most runs a row holds (comb), the checkerboard (one
+    component 8-connected, all singletons 4-connected), the trivial planes,
+    frames that are no multiple of the tile, and frames far larger than a
+    block's shared memory. Labels and all five modes, both connectivities;
+    one line per input."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_cc
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        adversarial_masks)
+    g = np.random.default_rng(5)
+    inputs = {}
+    for h, w in ((320, 256), (33, 70), (7, 130), (1, 1), (2, 2),
+                 (1024, 1024)):
+        for name, m in adversarial_masks(h, w).items():
+            if h < 1024 or name in ("spiral", "serpentine", "checkerboard"):
+                inputs[f"{h}x{w} {name}"] = m[None]
+    inputs["1024x1024 random(0.55)"] = g.random((1, 1024, 1024)) < 0.55
+    modes = (("remove_small", dict(min_size=40)),
+             ("fill_holes", dict(max_size=40)),
+             ("clean", dict(min_size=40, max_size=40)),
+             ("largest", {}), ("reach", {}))
+    for name, arr in inputs.items():
+        m = torch.from_numpy(arr).to(dev)
+        mk = torch.from_numpy(g.random(arr.shape) < 0.001).to(dev)
+        bad, checks = 0, 0
+        for conn in (1, 2):
+            pairs = [(cuda_cc.cc_label_cuda(m, conn),
+                      cuda_cc.cc_label_plain(m, conn))]
+            for mode, kw in modes:
+                if mode == "reach":
+                    kw = dict(marker=mk)
+                pairs.append((cuda_cc.cc_filter_cuda(m, mode, conn, **kw),
+                              cuda_cc.cc_filter_plain(m, mode, conn, **kw)))
+            torch.cuda.synchronize()
+            bad += sum(int((a != b).sum()) for a, b in pairs)
+            checks += len(pairs)
+        print(f"  {name}: mismatches {bad} in {checks} comparisons "
+              f"(labels + 5 modes, conn 1 and 2)")
+        if bad:
+            fail(f"kernel B differs from its plain version on {name}")
+
+
+def kernel_e_small_frames(dev) -> None:
+    """Kernel E against its twin on frames smaller than its halo and no
+    multiple of its tiles or strips, and on frames where the two bodies of
+    the kernel meet, in both precisions; one line per frame."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        cuda_nlm, denoise)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for h, w in ((2, 2), (5, 37), (33, 70), (64, 64), (70, 67), (131, 195)):
+        img = torch.rand((3, h, w), generator=g).to(dev)
+        out = []
+        for prec in ("bf16", "f32"):
+            a = cuda_nlm.nlm_denoise_cuda(img, precision=prec)
+            d = (a - denoise.nlm_denoise_plain(img, precision=prec)).abs()
+            torch.cuda.synchronize()
+            out.append(f"{prec} max|d| {float(d.max()):.3g}, pixels that "
+                       f"differ {int((d > 0).sum())} / {d.numel()}")
+            if not torch.isfinite(a).all() or not float(d.max()) <= NLM_ATOL:
+                fail(f"NLM {prec} outside tolerance at {h}x{w}")
+        print(f"  nlm {h}x{w}: " + "; ".join(out))
 
 
 # --- the matcher ------------------------------------------------------------
@@ -517,6 +568,8 @@ def blob_protocol_phase(dev, run_path, build) -> None:
         MatchParams)
     from multimodal_biometric_fingerprints_palms_tpu_torch.utils.io import (
         minutiae_to_json, save_minutiae_json)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        blob_prints)
     names = [(u, s) for u in range(1, 9) for s in (1, 2)]
     x = torch.from_numpy(blob_prints([10 + u for u, _ in names],
                                      [0.06 * (s - 1) for _, s in names])).to(dev)
@@ -609,12 +662,10 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
-    if not (ROOT / PKG).is_dir() or not (ROOT / "bench.py").is_file() \
-            or not GOLDEN.is_file():
+    if not (ROOT / PKG).is_dir() or not GOLDEN.is_file():
         fail(f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
 
-    from bench import make_batch
     from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
         cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
@@ -633,6 +684,8 @@ def main() -> None:
         _quantize_u8)
     from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
         extract_minutiae, postprocess_minutiae)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        blob_prints, make_batch)
 
     # 1. device
     card = card_line()
@@ -663,14 +716,6 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # 3. kernels against their plain twins at the main path's shapes
-    def compare_exact(name, kern, plain):
-        a, b = kern(), plain()
-        torch.cuda.synchronize()
-        bad = int((a != b).sum())
-        print(f"  {name}: mismatches {bad} / {a.numel()}")
-        if bad:
-            fail(f"{name}: kernel differs from its plain version")
-
     # the three CLAHE calls of the path: normalize, segment, binarize
     clahe_in = [(2.5, _quantize_u8(percentile_stretch(x, 0.5, 99.5))),
                 (2.0, _quantize_u8(res.denoised)),
@@ -727,6 +772,9 @@ def main() -> None:
           f"plain {cc_plain_ms:.4f} ms, bound {cc_bound[0]:.4f} ms "
           f"({cc_bound[1]})")
 
+    print("kernel B, adversarial inputs:")
+    kernel_b_adversarial(dev)
+
     print("kernel C (Zhang-Suen + prune):")
     gated = clean_mask(binary_smooth, 64, 80, connectivity=1) & (
         gaussian_blur(res.reliability, 2.0) > 0.1)
@@ -763,6 +811,9 @@ def main() -> None:
     nlm_bound = bound(8.0 * npx, 20.0 * 441 * npx)
     print(f"  time per call: kernel {nlm_ms:.4f} ms, plain {nlm_plain_ms:.4f} ms, "
           f"bound {nlm_bound[0]:.4f} ms ({nlm_bound[1]})")
+
+    print("kernel E, small and ragged frames:")
+    kernel_e_small_frames(dev)
 
     print("kernel F (Sauvola + patch Otsu):")
     img_eq = clahe(_quantize_u8(res.segmented), clip_limit=2.5, grid=8)
@@ -838,6 +889,10 @@ def main() -> None:
         b_ms, b_by = bound(5.0 * npx, 10.0 * npx) if "label" in mname else one_pass
         print(f"  {mname}: kernel {cc_modes[mname][0]:.4f} ms, plain "
               f"{cc_modes[mname][1]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    print("  clean(64, 80) conn1, device ops of one call: " + top_ops(
+        profile_ops(lambda: cuda_cc.cc_filter_cuda(
+            binary_smooth, "clean", 1, min_size=64, max_size=80)), 6))
 
     print("kernel G (open -> erode -> reconstruct):")
     compare_exact("binarize tail on the cleaned mask",

@@ -7,8 +7,16 @@ Replaces the TPU kernels of ``ops/pallas_cc.py`` (``cc_filter_pallas``,
 function: label the components of a mask (or of its inverse), then keep or
 drop pixels by a per-component property. The TPU split into canonical
 components on bit-packed planes was a workaround for the TPU's scans; its
-outputs equal the unsplit filter, which is what is computed here. On the
-card the kernel is bound by memory traffic and atomics (see the source).
+outputs equal the unsplit filter, which is what is computed here.
+
+On the card the function is bound by bytes (a mask in, a mask out), and what
+costs is atomics and dependent loads through L2. So a label pass works in
+shared memory on 32x32 tiles: a mask row is one ballot word, the pixels of a
+horizontal run share the run's first pixel as their label without any union,
+runs of neighbouring rows unite in shared memory, and sizes or marker flags
+are tallied per tile. Device memory sees unions only along the seams of the
+tiles and one atomic add per tile and component; a pixel then reaches its
+component's root in two loads (see the source).
 
 Labels are int32: the component's minimum linear index, background 2^30.
 
@@ -217,8 +225,9 @@ def fill_holes_split(mask: torch.Tensor, max_size: int,
     """remove_small_holes(max_size): the entry point named after the JAX
     package's one-canonical-component split filter. That kernel took the
     border-connected background as packed planes so the TPU would not relax
-    it per image; kernel B's union-find has no such cost, so this is B's
-    "fill_holes" mode (``max_iters`` kept for signature parity only)."""
+    it per image; kernel B labels it tile by tile at no such cost, so this
+    is B's "fill_holes" mode (``max_iters`` kept for signature parity
+    only)."""
     del max_iters
     return cc_filter(mask, "fill_holes", connectivity, max_size=max_size)
 

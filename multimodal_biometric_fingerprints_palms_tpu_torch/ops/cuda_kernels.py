@@ -32,7 +32,9 @@ def _clip_limit(clip_limit: float, tile_area: int) -> float:
 def _blend_weights(n: int, tile: int, grid: int, device):
     """Per-coordinate (lo tile, hi tile, weight of hi tile), OpenCV's
     convention: tile coordinate = pixel / tile_size - 0.5."""
-    c = torch.arange(n, dtype=torch.float32, device=device) / tile - 0.5
+    # a tensor divisor: a true division on every device (see bin_to_unit)
+    c = torch.arange(n, dtype=torch.float32, device=device) / torch.full(
+        (), float(tile), device=device) - 0.5
     fl = torch.floor(c)
     w1 = torch.clamp(c - fl, 0.0, 1.0)
     w1 = torch.where(c < 0, torch.zeros_like(w1),
@@ -40,6 +42,15 @@ def _blend_weights(n: int, tile: int, grid: int, device):
     t0 = torch.clamp(fl, 0, grid - 1).to(torch.int64)
     t1 = torch.clamp(fl + 1, 0, grid - 1).to(torch.int64)
     return t0, t1, w1
+
+
+def bin_to_unit(idx: torch.Tensor) -> torch.Tensor:
+    """Bin index -> [0,1] by a true float32 division on every device. The
+    divisor is a tensor because PyTorch on CUDA turns a division by a Python
+    scalar into a multiplication by its reciprocal, which lands one ulp off
+    ``bin / 255`` for some bins and flips ``x < thr`` for every pixel that
+    sits exactly on the threshold's grid value. Kernel A divides truly."""
+    return idx / torch.full((), 255.0, dtype=idx.dtype, device=idx.device)
 
 
 def _to_bins(x: torch.Tensor) -> torch.Tensor:
@@ -91,7 +102,7 @@ def clahe_plain(x: torch.Tensor, clip_limit: float = 2.5,
     out = out + tap(y0, x1) * (wy0[:, None] * wx1[None, :])
     out = out + tap(y1, x0) * (wy1[:, None] * wx0[None, :])
     out = out + tap(y1, x1) * (wy1[:, None] * wx1[None, :])
-    return torch.clamp(out / 255.0, 0.0, 1.0).reshape(lead + (h, w))
+    return torch.clamp(bin_to_unit(out), 0.0, 1.0).reshape(lead + (h, w))
 
 
 def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5,

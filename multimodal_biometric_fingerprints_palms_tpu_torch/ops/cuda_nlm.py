@@ -5,11 +5,18 @@ Replaces the TPU kernels ``ops/pallas_kernels.py:nlm_denoise_pallas_sym``
 ``nlm_denoise_pallas_blocked``. Those split the work to suit the MXU: banded
 matmuls for the template sums, each SSD reused for the mirrored offset, the
 13-px border ring recomputed apart. On the card every output pixel visits
-all search offsets in the plain twin's order, one 32x32 tile per block with
-the rounded image and its halo in shared memory, so one kernel serves every
-entry point, shape and precision. The kernel is bound by instruction issue
-(441 offsets of about 20 float operations and an ``expf`` per pixel against
-8 bytes of traffic).
+all search offsets in the plain twin's order, so one wrapper serves every
+entry point, shape and precision, bit-equal to the twin. The kernel is bound
+by instruction issue (441 offsets of about 20 float operations and an
+``expf`` per pixel against 8 bytes of traffic), and what it must keep down
+is shared-memory traffic and barriers. For the main path's windows (7, 21)
+a 64x64 tile per block keeps the squared differences in registers: a thread
+forms 16 vertical 7-sums from 22 differences, then 16 horizontal 7-sums from
+22 vertical sums, with its centre pixels and accumulators in registers for
+all 441 offsets, one barrier per offset, and bf16 roundings taken two at a
+time through one packed conversion. Tiles that this body does not
+serve (ragged edges, frames under 64 px, other windows) go to the generic
+body, which passes both planes through shared memory (see the source).
 
 The plain twin and the dispatcher live in ``ops/denoise.py``
 (``nlm_denoise_plain``, ``nlm_denoise``).

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_kernels import clahe as _clahe_dispatch
+from .cuda_kernels import bin_to_unit, clahe as _clahe_dispatch
 
 NBINS = 256
 
@@ -114,22 +114,13 @@ def _otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
     return torch.argmax(sigma_b, dim=-1).to(torch.float32)
 
 
-def _bin_to_unit(idx: torch.Tensor) -> torch.Tensor:
-    """Bin index -> [0,1] by a true float32 division on every device. The
-    divisor is a tensor because PyTorch on CUDA turns a division by a Python
-    scalar into a multiplication by its reciprocal, which lands one ulp off
-    ``bin / 255`` for some bins and flips ``x < thr`` for every pixel that
-    sits exactly on the threshold's grid value."""
-    return idx / torch.full((), 255.0, dtype=idx.dtype, device=idx.device)
-
-
 def otsu_threshold(x: torch.Tensor,
                    mask: torch.Tensor | None = None) -> torch.Tensor:
     """Global Otsu threshold in [0,1] over the trailing two dims."""
     lead = x.shape[:-2]
     v = _to_u8(x).reshape(lead + (-1,))
     w = None if mask is None else mask.reshape(lead + (-1,))
-    return _bin_to_unit(_otsu_from_hist(histogram256(v, w)))
+    return bin_to_unit(_otsu_from_hist(histogram256(v, w)))
 
 
 def otsu_threshold_patchwise(x: torch.Tensor, patch: int,
@@ -145,7 +136,7 @@ def otsu_threshold_patchwise(x: torch.Tensor, patch: int,
         return a.transpose(-3, -2).reshape(lead + (gh, gw, patch * patch))
 
     wts = None if mask is None else tiles(mask)
-    thr = _bin_to_unit(_otsu_from_hist(histogram256(tiles(_to_u8(x)), wts)))
+    thr = bin_to_unit(_otsu_from_hist(histogram256(tiles(_to_u8(x)), wts)))
     return thr.repeat_interleave(patch, dim=-1).repeat_interleave(patch, dim=-2)
 
 

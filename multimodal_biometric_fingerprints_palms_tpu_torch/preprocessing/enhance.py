@@ -18,6 +18,7 @@ import torch
 
 from ..ops.components import clean_mask, convex_hull_mask, largest_component
 from ..ops.cuda_binarize import binarize_fused_split
+from ..ops.cuda_kernels import bin_to_unit
 from ..ops.cuda_thin import zs_thin
 from ..ops.denoise import nlm_denoise
 from ..ops.filters import gaussian_blur, gaussian_blur_cv, sobel
@@ -46,8 +47,9 @@ def exact_float32() -> None:
 
 
 def _quantize_u8(x: torch.Tensor) -> torch.Tensor:
-    """Round through the uint8 grid, staying float."""
-    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
+    """Round through the uint8 grid, staying float (a true division, so the
+    card and the CPU land on the same float)."""
+    return bin_to_unit(torch.round(torch.clamp(x, 0.0, 1.0) * 255.0))
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ from multimodal_biometric_fingerprints_palms_tpu.ops.pallas_cc import (
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import components as T
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import morphology as TM
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_cc import (
-    cc_filter)
+    BACKGROUND, cc_filter, cc_filter_plain, cc_label_plain)
+from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+    adversarial_masks)
 
 torch.set_num_threads(1)
 
@@ -100,3 +102,53 @@ def test_convex_hull_and_bbox_exact():
     mj, mt = jnp.asarray(m), torch.from_numpy(m)
     _eq(J.convex_hull_mask(mj, 90), T.convex_hull_mask(mt, 90))
     _eq(J.mask_bbox(mj), T.mask_bbox(mt))
+
+
+ADVERSARIAL = ("spiral", "serpentine", "checkerboard", "comb", "full", "empty")
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_plain_twin_exact_on_adversarial_masks(name, conn):
+    """The masks on which the card's smoke run holds kernel B to its plain
+    twin (components that cross every tile seam, the most runs a row holds,
+    the trivial planes), at a small size that is no multiple of the kernel's
+    tile: here the twin itself is held to the JAX package, labels and every
+    filter mode."""
+    h, w = 37, 45
+    m = adversarial_masks(h, w)[name][None]
+    marker = np.random.default_rng(11).random(m.shape) < 0.02
+    mj, mt = jnp.asarray(m), torch.from_numpy(m)
+    lab = cc_label_plain(mt, conn)
+    _eq(J.connected_components(mj, conn), lab)
+    _eq(J.remove_small_objects(mj, 40, conn),
+        cc_filter_plain(mt, "remove_small", conn, min_size=40))
+    _eq(J.remove_small_holes(mj, 40, conn),
+        cc_filter_plain(mt, "fill_holes", conn, max_size=40))
+    _eq(J.clean_mask(mj, 40, 40, conn),
+        cc_filter_plain(mt, "clean", conn, min_size=40, max_size=40))
+    _eq(J.largest_component(mj, conn),
+        cc_filter_plain(mt, "largest", conn))
+    if conn == 2:       # the JAX reconstruction dilates with a 3x3 square
+        _eq(JM.binary_reconstruction_by_dilation(
+            jnp.asarray(marker & m), mj, max_iters=4096),
+            cc_filter_plain(mt, "reach", conn,
+                            marker=torch.from_numpy(marker)))
+
+
+def test_adversarial_masks_are_what_they_claim():
+    masks = adversarial_masks(37, 45)
+    assert tuple(masks) == ADVERSARIAL
+
+    def one(m, conn):
+        lab = cc_label_plain(torch.from_numpy(m[None]), conn)
+        return int(torch.unique(lab[lab != BACKGROUND]).numel())
+
+    for name in ("spiral", "serpentine", "comb", "full"):
+        assert one(masks[name], 1) == 1, name          # one component
+    assert one(masks["checkerboard"], 2) == 1
+    assert one(masks["checkerboard"], 1) == int(masks["checkerboard"].sum())
+    assert not masks["empty"].any()
+    # the spiral is one pixel wide: no 2x2 block is set
+    s = masks["spiral"]
+    assert not (s[:-1, :-1] & s[1:, :-1] & s[:-1, 1:] & s[1:, 1:]).any()

@@ -282,3 +282,31 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
         with pytest.raises(ValueError, match="CUDA tensor"):
             cuda_match.hypothesis_scores(*args, MatchParams())
     assert build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/port_output_digest.py"])
+def test_card_scripts_import_nothing_of_the_jax_side(script):
+    """The scripts that run on the card's machine import neither JAX, the
+    JAX package nor the root ``bench.py`` (the JAX benchmark): the port has
+    its own copy of the synthetic inputs (``utils/synthetic.py``)."""
+    import ast
+    tree = ast.parse((ROOT / script).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & {"jax", "bench", JAX_PKG, "cv2"}, names
+
+
+def test_synthetic_module_needs_numpy_only():
+    code = ("import sys; import {0}.utils.synthetic; "
+            "bad = [m for m in ('jax', 'torch', 'cv2', 'bench') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
+            ).format(PORT_PKG)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

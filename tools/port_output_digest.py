@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Digests of the port's main-path outputs on one GPU, to compare two
+checkouts byte for byte.
+
+    python3 tools/port_output_digest.py --root CHECKOUT          # one tree
+    python3 tools/port_output_digest.py --compare PARENT CHANGE  # two trees
+
+With ``--root`` it imports the port from CHECKOUT, runs
+``preprocess_fingerprint`` -> ``extract_minutiae`` -> ``postprocess_minutiae``
+on ``make_batch(128)`` and on the 16 blob prints (both from this file's own
+tree, so two checkouts see the same images), and prints one JSON line of
+SHA-256 digests: the denoised image, the binary mask, the skeleton and every
+field of the minutiae set. With ``--compare`` it runs itself once per
+checkout, each in a process of its own, and exits 1 unless every digest
+agrees. A kernel change that claims bit-equal outputs is checked this way,
+the parent commit unpacked beside the change (``git archive``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+PKG = "multimodal_biometric_fingerprints_palms_tpu_torch"
+
+
+def _synthetic():
+    spec = importlib.util.spec_from_file_location(
+        "_synthetic", HERE / PKG / "utils" / "synthetic.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digests(root: Path, batch: int) -> dict:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("port_output_digest: needs a GPU")
+    sys.path.insert(0, str(root))
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
+        extract_minutiae, postprocess_minutiae)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        preprocess_fingerprint)
+    syn = _synthetic()
+    out = {"card": torch.cuda.get_device_name(0)}
+
+    def sha(t):
+        return hashlib.sha256(
+            t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:24]
+
+    for name, imgs in (("make_batch", syn.make_batch(batch)),
+                       ("blob_prints", syn.blob_prints(range(16)))):
+        res = preprocess_fingerprint(torch.from_numpy(imgs).cuda())
+        ms = postprocess_minutiae(extract_minutiae(res.skeleton), res.skeleton)
+        torch.cuda.synchronize()
+        for field in ("denoised", "binary", "skeleton"):
+            out[f"{name}.{field}"] = sha(getattr(res, field))
+        for field, value in zip(ms._fields, ms):
+            out[f"{name}.minutiae.{field}"] = sha(value)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path)
+    ap.add_argument("--compare", nargs=2, type=Path, metavar="CHECKOUT")
+    ap.add_argument("--batch", type=int, default=128)
+    args = ap.parse_args()
+    if args.root:
+        print(json.dumps(digests(args.root.resolve(), args.batch)))
+        return
+    if not args.compare:
+        ap.error("give --root or --compare")
+    runs = []
+    for root in args.compare:
+        res = subprocess.run(
+            [sys.executable, __file__, "--root", str(root), "--batch",
+             str(args.batch)], capture_output=True, text=True, check=False)
+        if res.returncode:
+            raise SystemExit(f"{root}: failed\n{res.stdout}\n{res.stderr}")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(f"{root}: {runs[-1]}")
+    differ = [k for k in runs[0] if runs[0][k] != runs[1].get(k)]
+    print(f"fields compared {len(runs[0])}, fields that differ: "
+          f"{differ if differ else 'none'}")
+    sys.exit(1 if differ else 0)
+
+
+if __name__ == "__main__":
+    main()
