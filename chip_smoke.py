@@ -15,7 +15,8 @@ and drives both paths of the port on the card:
   JAX benchmark's input, ``utils/synthetic.py``), asserts that it
   went through every kernel, and checks its output;
 - the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
-  plain twin at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
+  plain twin and against the kernel it replaced (``tools/match_parent.cu``)
+  at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
   screen parameters, times the full pass at chunks of 512 and 4096 pairs
   and breaks each chunk's host and device time down by step (the device
   time under ``torch.profiler``), runs the FRR/FAR/EER protocol of the reference golden
@@ -28,8 +29,8 @@ Imports nothing of JAX or of the JAX package. Prints the card's name and
 power limit, one JSON line with every kernel's launches, error, times and
 bound (the least time the card could take: bytes over its memory rate or
 operations over its float32 rate, whichever is larger), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
-any failure, when no GPU is available, or outside a checkout of the
-repository.
+any failure (a kernel timed under its bound is one: such a bound is none),
+when no GPU is available, or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ PEAK_OPS_S = 67e12
 
 # Matcher. Kernel D against its plain twin: counts exact; scores within
 # 1e-6, because the warp's shuffle tree sums the K inlier scores in another
-# order than the twin's sum.
+# order than the twin's sum. Against the kernel it replaced: counts exact.
 D_ATOL = 1e-6
 PARITY_FULL = ROOT / "tests" / "fixtures" / "parity_full"
 GOLDEN = ROOT / "tests" / "fixtures" / "parity_full_golden.json"
@@ -109,21 +110,28 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def thinning_work(mask) -> float:
-    """Zhang-Suen operations this batch needs: each image runs subpass pairs
-    until one pair changes nothing (that last pair included), and a subpass
-    costs about 40 operations per pixel still set (8 neighbour reads, the
-    count, the transition count, the two products, the test)."""
-    import torch
+    """Bitwise operations Zhang-Suen thinning needs on this batch, whatever
+    implements it. Thinning is boolean algebra on the 3x3 neighbourhood, so
+    the least work handles 32 pixels of a row as one word: per subpass and
+    word that holds a set pixel about 100 two-input operations (18 for the
+    six shifted neighbour planes with their carries, 30 for the adder tree
+    and 2 <= B <= 6, 42 for the eight transitions and A == 1, 7 for the
+    product and the removal: 97). Each image runs subpass pairs until one
+    pair changes nothing, that pair included. (A count of 40 operations per
+    set pixel, as for a pixel-per-thread kernel, is one a word-parallel
+    kernel runs under, so it bounds nothing.)"""
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_thin import (
-        _subpass)
-    img = mask.to(torch.int32)
-    live = img.new_ones(img.shape[0], dtype=bool)
+        _words_subpass, pack_words)
+    words = pack_words(mask.reshape((-1,) + tuple(mask.shape[-2:])))
+    live = words.new_ones(words.shape[0], dtype=bool)
     ops = 0.0
     while bool(live.any()):
-        ops += 2 * 40.0 * float(img[live].sum())
-        new = _subpass(_subpass(img, True), False)
-        live = live & (new != img).flatten(1).any(dim=1)
-        img = new
+        cur = words[live]
+        mid = _words_subpass(cur, True)
+        new = _words_subpass(mid, False)
+        ops += 100.0 * float((cur != 0).sum() + (mid != 0).sum())
+        words[live] = new
+        live[live.clone()] = (new != cur).flatten(1).any(dim=1)
     return ops
 
 
@@ -180,9 +188,25 @@ def profile_ops(fn) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a short window has been seen to come back without the operation
+        # at its edge (kernel D's one launch as none): keep the edges away
+        # from ``fn`` by a pause and a sentinel kernel on either side, and
+        # take the sentinels out by name
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        time.sleep(0.05)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+
+
+def device_ms(ops) -> float:
+    """Summed device time of ``profile_ops`` events, ms."""
+    return sum(e.time_range.elapsed_us() for e in ops) / 1e3
 
 
 def top_ops(ops, n: int = 5) -> str:
@@ -286,6 +310,57 @@ def kernel_b_adversarial(dev) -> None:
             fail(f"kernel B differs from its plain version on {name}")
 
 
+def kernel_c_frames(dev, gated) -> None:
+    """Kernel C against its twin beyond the main path's shape: frames that
+    are no multiple of a word (and one a single pixel), frames of 512x512
+    and 1024x1024 (the second keeps one shared-memory plane); on ridge masks
+    cut or tiled from the stage mask ``gated``, thick and one-pixel spirals,
+    one-pixel lines, the checkerboard and the trivial planes (a full frame
+    thins for min(H, W) / 2 iterations); both ``prune`` values and
+    ``max_iters`` of 1, 2 and 128; one line per frame."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_thin
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        adversarial_masks, spiral_mask)
+    # 4 x 4 stage masks side by side: ridges at any frame size up to 1280x1024
+    quilt = gated[:16].reshape(4, 4, *gated.shape[-2:]).permute(
+        0, 2, 1, 3).reshape(4 * gated.shape[-2], 4 * gated.shape[-1])
+    for h, w in ((320, 256), (33, 70), (7, 130), (1, 1), (320, 250),
+                 (512, 512), (1024, 1024)):
+        masks = {k: torch.from_numpy(v) for k, v in
+                 adversarial_masks(h, w).items()}
+        masks["thick spiral"] = torch.from_numpy(np.kron(
+            spiral_mask(-(-h // 4), -(-w // 4)),
+            np.ones((4, 4), bool))[:h, :w])
+        batch = torch.stack([quilt[:h, :w], quilt[-h:, -w:]]
+                            + [m.to(dev) for m in masks.values()])
+        bad = checks = 0
+        for iters in (1, 2, 128):
+            for prune in (False, True):
+                a = cuda_thin.zs_thin_cuda(batch, iters, prune)
+                b = cuda_thin.zs_thin_plain(batch, iters, prune)
+                torch.cuda.synchronize()
+                bad += int((a != b).sum())
+                checks += 1
+        print(f"  {h}x{w}: mismatches {bad} in {checks} comparisons of "
+              f"{batch.shape[0]} masks (ridges x2, {', '.join(masks)}; "
+              f"max_iters 1, 2, 128; prune off and on)")
+        if bad:
+            fail(f"kernel C differs from its plain version at {h}x{w}")
+    full = torch.ones((2, 320, 256), dtype=torch.bool, device=dev)
+    compare_exact("thin full 320x256 to its fixpoint (max_iters 1024)",
+                  lambda: cuda_thin.zs_thin_cuda(full, 1024, True),
+                  lambda: cuda_thin.zs_thin_plain(full, 1024, True))
+    for nb, h, w in ((32, 512, 512), (8, 1024, 1024)):
+        big = torch.stack([quilt.roll((37 * i, 53 * i), (0, 1))[:h, :w]
+                           for i in range(nb)])
+        ms = time_ms(lambda: cuda_thin.zs_thin_cuda(big, 128, True), 10)
+        b_ms, b_by = bound(2.0 * big.numel(), thinning_work(big))
+        print(f"  {nb} frames of {h}x{w} (tiled stage masks): kernel {ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+
 def kernel_e_small_frames(dev) -> None:
     """Kernel E against its twin on frames smaller than its halo and no
     multiple of its tiles or strips, and on frames where the two bodies of
@@ -317,18 +392,36 @@ def gather_pairs(ds, pairs):
     return _gather(ds, pairs[:, 0]), _gather(ds, pairs[:, 1])
 
 
-def kernel_d_phase(ds, pairs):
-    """Kernel D against its plain twin on the pairs' (P, K) templates, under
-    the FRR gates, the FAR gates and the cascade screen's parameters.
-    Returns (max abs error, kernel ms, plain ms, bound ms, bound by) at the
-    FRR gates."""
+def load_tool(name: str):
+    """A script under ``tools/`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_d_phase(ds, pairs, many) -> dict:
+    """Kernel D against its plain twin and against the kernel it replaced
+    (``tools/match_parent.cu``, built here) on the pairs' (P, K) templates,
+    under the FRR gates, the FAR gates and the cascade screen's parameters,
+    and once more with validity scattered over the slots, some pairs without
+    a valid B slot and two hypotheses per pair that put an A minutia onto
+    the point the invalid B slots are displaced to (the kernel skips
+    invalid B slots, and there one of them is the nearest neighbour):
+    counts equal to both, scores within ``D_ATOL`` of the twin. Then its
+    time at the FRR gates beside the twin's, the parent's and the bound, at
+    the screen's H, and on the ``many`` pairs of a 4096 chunk; and the
+    device operations one wrapper call launches, before and after."""
     import torch
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams, _pair_stats, sample_hypotheses)
-    a, b = gather_pairs(ds, pairs)
-    wa, wb, _, _, possible, _ = _pair_stats(a, b)
+        MatchParams, _apply_rigid, _pair_stats, sample_hypotheses)
+    tool = load_tool("match_variants")
+    parent, parent_regs, _ = tool.build_parent()
+    print(f"  parent kernel built: ptxas: {parent_regs}")
     frr = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
     cases = {
         f"FRR gates, H={H_FULL}": frr,
@@ -337,40 +430,114 @@ def kernel_d_phase(ds, pairs):
             ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
             min_inliers=frr.min_inliers - 2),
     }
-    err, timing_args = 0.0, None
-    for name, p in cases.items():
+
+    def call_args(prs, p, scattered=False):
+        a, b = gather_pairs(ds, prs)
+        if scattered:
+            g = torch.Generator(device="cpu").manual_seed(7)
+            keep = lambda v: v & (torch.rand(v.shape, generator=g)
+                                  < 0.7).to(v.device)
+            a, b = a._replace(valid=keep(a.valid)), b._replace(valid=keep(b.valid))
+            b.valid[::16] = False
+        wa, wb, _, _, possible, _ = _pair_stats(a, b)
         theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
-        args = (a, b, wa, wb, theta, t, cand, possible, p)
+        if scattered:
+            spot = torch.tensor([-1e6 + 3.0, -1e6 - 2.0], device=t.device)
+            for h, i in ((-1, 0), (-2, 1)):
+                t[:, h] = spot - _apply_rigid(a.xy[:, i], theta[:, h], 0.0)
+        return (a, b, wa, wb, theta, t, cand, possible, p)
+
+    err, err_parent, timed = 0.0, 0.0, {}
+    for name, p in (*cases.items(), ("scattered validity, FRR gates", frr)):
+        args = call_args(pairs, p, scattered=name.startswith("scattered"))
         sk, ck = cm.hypothesis_scores_cuda(*args)
         sp, cp = cm.hypothesis_scores_plain(*args)
+        so, co = tool.parent_scores(parent, *args)
         torch.cuda.synchronize()
-        bad = int((ck != cp).sum())
-        e = float((sk - sp).abs().max())
+        bad, bad_parent = int((ck != cp).sum()), int((ck != co).sum())
+        e, e_parent = float((sk - sp).abs().max()), float((sk - so).abs().max())
         print(f"  {name}: P={sk.shape[0]} H={sk.shape[1]}: count mismatches "
-              f"{bad} / {ck.numel()}, max|ds| {e:.3g}, scores > 0 "
+              f"{bad} / {ck.numel()} against the twin, {bad_parent} against "
+              f"the parent kernel; max|ds| {e:.3g} against the twin, "
+              f"{e_parent:.3g} against the parent; scores > 0 "
               f"{int((sk > 0).sum())}")
         if bad or e > D_ATOL or not torch.isfinite(sk).all():
             fail(f"kernel D differs from its plain twin ({name})")
+        if bad_parent:
+            fail(f"kernel D's counts differ from the parent kernel's ({name})")
         if int((sk > 0).sum()) == 0:
             fail(f"kernel D comparison is trivial ({name}): no score > 0")
-        err = max(err, e)
-        timing_args = timing_args or args
-    ms = time_ms(lambda: cm.hypothesis_scores_cuda(*timing_args), 20)
-    plain_ms = time_ms(lambda: cm.hypothesis_scores_plain(*timing_args), 3)
-    # the staged inputs (x, y, orientation, type, weight per minutia of A and
-    # B; theta, tx, ty, has_cand per hypothesis; `possible`) and both
-    # outputs; about 10 float operations per transformed-A-to-B distance
-    pn, kk = a.valid.shape
-    b_ms, b_by = bound(4.0 * pn * (10 * kk + 4 * H_FULL + 1 + 2 * H_FULL),
-                       10.0 * pn * H_FULL * kk * kk)
-    print(f"  time per call (P={len(pairs)}, H={H_FULL}, K=64): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return err, ms, plain_ms, b_ms, b_by
+        err, err_parent = max(err, e), max(err_parent, e_parent)
+        timed[name] = args
+    frr_args, _, screen_args, _ = timed.values()
+    ms = time_ms(lambda: cm.hypothesis_scores_cuda(*frr_args), 20)
+    plain_ms = time_ms(lambda: cm.hypothesis_scores_plain(*frr_args), 3)
+    parent_ms = time_ms(lambda: tool.parent_scores(parent, *frr_args), 20)
+    # the matcher's tensors (x, y, orientation, type, weight, valid per
+    # minutia of A and B; theta, tx, ty, has_cand per hypothesis;
+    # `possible`) and both outputs; about 10 float operations per distance
+    # from a transformed valid A minutia to a valid B minutia (the invalid
+    # slots of a template share one point, so they need one distance, not
+    # one each: the count is what these templates need, not K * K)
+    def d_bound(args):
+        a, b, theta = args[0], args[1], args[4]
+        (pn, kk), h = a.valid.shape, theta.shape[1]
+        dists = float((a.valid.sum(dim=1) * b.valid.sum(dim=1)).sum()) * h
+        return bound(pn * (2 * kk * 21 + 4 * (4 * h + 1 + 2 * h)),
+                     10.0 * dists)
+
+    pn = frr_args[0].valid.shape[0]
+    b_ms, b_by = d_bound(frr_args)
+    valid = torch.cat([frr_args[0].valid, frr_args[1].valid]).sum(dim=1)
+    print(f"  valid minutiae per template of these pairs: min "
+          f"{int(valid.min())}, mean {float(valid.float().mean()):.1f}, max "
+          f"{int(valid.max())} of {frr_args[0].valid.shape[1]} slots")
+    print(f"  time per call (P={pn}, H={H_FULL}, K=64): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, parent kernel with its staging "
+          f"{parent_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    ops_new = profile_ops(lambda: cm.hypothesis_scores_cuda(*frr_args))
+    ops_old = profile_ops(lambda: tool.parent_scores(parent, *frr_args))
+    print(f"  device ops of one wrapper call: {len(ops_new)} "
+          f"({top_ops(ops_new, 3)}); the parent's wrapper: {len(ops_old)}")
+    # at the screen's H a call is shorter than the host takes to launch it,
+    # so back-to-back calls time the host; the device time is the profiler's
+    s_ms = device_ms(profile_ops(
+        lambda: cm.hypothesis_scores_cuda(*screen_args)))
+    s_parent = device_ms(profile_ops(
+        lambda: tool.parent_scores(parent, *screen_args)))
+    s_host = time_ms(lambda: cm.hypothesis_scores_cuda(*screen_args), 20)
+    if s_ms == 0.0:
+        print("  torch.profiler shows no device operation for the screen's "
+              "call: its back-to-back time stands in")
+        s_ms = s_host
+    s_bound = d_bound(screen_args)
+    print(f"  device time of one call (P={pn}, H={SCREEN_ITERS}): kernel "
+          f"{s_ms:.4f} ms, parent with its staging {s_parent:.4f} ms, bound "
+          f"{s_bound[0]:.4f} ms ({s_bound[1]}); back-to-back calls "
+          f"{s_host:.4f} ms each")
+    big = call_args(many, frr)
+    big_ms = time_ms(lambda: cm.hypothesis_scores_cuda(*big), 10)
+    big_parent = time_ms(lambda: tool.parent_scores(parent, *big), 10)
+    big_bound = d_bound(big)
+    same = int((cm.hypothesis_scores_cuda(*big)[1]
+                != tool.parent_scores(parent, *big)[1]).sum())
+    print(f"  time per call (P={len(many)}, H={H_FULL}): kernel {big_ms:.4f} "
+          f"ms, parent {big_parent:.4f} ms, bound {big_bound[0]:.4f} ms "
+          f"({big_bound[1]}); count mismatches against the parent {same}")
+    if same:
+        fail("kernel D's counts differ from the parent kernel's at 4096 pairs")
+    for what, t_ms, t_bound in (("H=300", ms, b_ms), ("H=32", s_ms, s_bound[0]),
+                                ("P=4096", big_ms, big_bound[0])):
+        if t_ms < t_bound:
+            fail(f"kernel D ({what}) timed under its bound")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, device_ops_per_call=len(ops_new),
+                parent_ms=parent_ms, max_abs_diff_parent=err_parent)
 
 
 def chunk_profile(ds, pairs, reps: int = 5) -> None:
     """Where one chunk's time goes. For the full pass's steps (sampling with
-    the per-pair stats, kernel D with its input staging, the finish), the
+    the per-pair stats, kernel D's wrapper call, the finish), the
     whole pass and the cascade screen, on the same (P, K) templates:
 
     - host ms: the host clock around one call, synchronized before and
@@ -407,7 +574,7 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
         _finish_match(a, b, wa, wb, possible, na, nb, reject, *st["scores"],
                       theta, t, p)
 
-    steps = {"sample": sample, "kernel D + staging": score, "finish": finish,
+    steps = {"sample": sample, "kernel D": score, "finish": finish,
              "whole pass": lambda: cm.match_pairs_batch(a, b, p),
              "screen": lambda: cm.screen_promote_batch(a, b, screen_p)}
     host, device, whole = {}, {}, []
@@ -415,12 +582,11 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
         fn()
         host[name] = sum(wall_s(fn)[1] for _ in range(reps)) / reps * 1e3
         ops = profile_ops(fn)
-        device[name] = (sum(e.time_range.elapsed_us() for e in ops) / 1e3,
-                        len(ops))
+        device[name] = (device_ms(ops), len(ops))
         if name == "whole pass":
             whole = ops
     n = len(pairs)
-    part = ("sample", "kernel D + staging", "finish")
+    part = ("sample", "kernel D", "finish")
     print(f"  chunk {n}, host ms per call, synchronized: " + ", ".join(
         f"{k} {host[k]:.3f}" for k in steps)
         + f"; sum of the three steps {sum(host[k] for k in part):.3f}")
@@ -628,13 +794,12 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
     blob_pairs = np.asarray([(nfix + i, nfix + j) for i in range(nblob)
                              for j in range(i + 1, nblob)], np.int32)
     d_pairs = np.concatenate([blob_pairs, fix_pairs])[:CHUNK]
-    d_err, d_ms, d_plain_ms, d_bound_ms, d_bound_by = kernel_d_phase(
-        gds, d_pairs)
+    many = fix_pairs[:max(RATE_CHUNKS)]
+    d = kernel_d_phase(gds, d_pairs, many)
 
     # full-pass rate at chunk 512 and 4096 (one chunk each, synchronized),
     # and where each chunk's time goes
     p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
-    many = fix_pairs[:max(RATE_CHUNKS)]
     reps = 3
     for chunk in RATE_CHUNKS:
         match_pair_indices(gds, many[:chunk], p, chunk=chunk)
@@ -648,14 +813,13 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
 
     # 2. the golden protocol
     print("golden protocol (tests/fixtures/parity_full, RANSAC 300):")
-    d_launches = golden_phase(dev, build)
+    d["launches"] = golden_phase(dev, build)
 
     # 3. enhance -> match
     print("enhance -> match (8 users x 2 sessions of blob prints, "
           "production configuration):")
     blob_protocol_phase(dev, run_path, build)
-    return dict(err=d_err, ms=d_ms, plain_ms=d_plain_ms, launches=d_launches,
-                bound_ms=d_bound_ms, bound_by=d_bound_by)
+    return d
 
 
 def main() -> None:
@@ -787,6 +951,8 @@ def main() -> None:
     thin_bound = bound(2.0 * npx, thinning_work(gated))
     print(f"  time per call: kernel {thin_ms:.4f} ms, plain {thin_plain_ms:.4f} ms, "
           f"bound {thin_bound[0]:.4f} ms ({thin_bound[1]})")
+    print("kernel C, other frames and masks:")
+    kernel_c_frames(dev, gated)
 
     print("kernel E (non-local means):")
     nlm_err = 0.0
@@ -991,7 +1157,7 @@ def main() -> None:
     # time of the operations the same run issues under torch.profiler
     _, host_s = wall_s(lambda: run_path(x))
     ops = profile_ops(lambda: run_path(x))
-    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    dev_ms = device_ms(ops)
     print(f"  one run: {host_s * 1e3:.1f} ms on the host clock; under "
           f"torch.profiler {dev_ms:.1f} ms of device time in {len(ops)} device "
           f"ops -> busy {dev_ms / (host_s * 1e3):.1%}")
@@ -1066,12 +1232,20 @@ def main() -> None:
               f"{jax_ops}/pallas_bitpack.py:329", launches["morph"], 0.0,
               g_ms, g_plain_ms, g_bound),
     ]
+    # for kernel D also: the device operations one wrapper call launches, its
+    # time against the kernel it replaced (that one's input staging
+    # included), and the largest score difference between the two
+    kernels[3].update({key: d[key] for key in (
+        "device_ops_per_call", "parent_ms", "max_abs_diff_parent")})
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']} {key} not finite")
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
+        if k["ms"] < k["bound_ms"]:
+            fail(f"{k['name']}: {k['ms']:.4f} ms reads under its bound "
+                 f"{k['bound_ms']:.4f} ms; the bound is miscounted")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,9 +55,13 @@ def _enrich(ms: MinutiaeSet, skel: torch.Tensor, density: torch.Tensor,
     angular_stability = torch.exp(-3.0 * stds)
 
     xf, yf = x.to(torch.float32), y.to(torch.float32)
+    # tensor divisors: a true division on every device (h / 2 is no power
+    # of two; see ops.cuda_kernels.bin_to_unit)
+    half_w = torch.full((), w / 2.0, device=xf.device)
+    half_h = torch.full((), h / 2.0, device=xf.device)
     center_bonus = 1.0 - 0.5 * (
-        (torch.abs(xf - w / 2.0) / (w / 2.0)) ** 2
-        + (torch.abs(yf - h / 2.0) / (h / 2.0)) ** 2
+        (torch.abs(xf - w / 2.0) / half_w) ** 2
+        + (torch.abs(yf - h / 2.0) / half_h) ** 2
     )
     local_intensity = _at(skel, yc, xc)
 

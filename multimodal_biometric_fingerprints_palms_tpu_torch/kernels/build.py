@@ -51,10 +51,11 @@ _SIGNATURES = {
                        _P),
     # mask, out, nb, h, w, max_iters, prune, stream
     "mbfp_zs_thin": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # fa, fb, hyp, possible, scores, counts, p, h, k, dist2, orient,
-    # sigma_d2, sigma_o2, use_type, min_inliers, stream
-    "mbfp_hypothesis_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                               _F, _F, _I, _I, _P),
+    # xy, orientation, type, valid, weight of A and of B; theta, t,
+    # has_cand, possible; scores, counts; p, h, k, dist2, orient, sigma_d2,
+    # sigma_o2, use_type, min_inliers, stream
+    "mbfp_hypothesis_scores": (*(_P,) * 16, _I, _I, _I, _F, _F, _F, _F, _I,
+                               _I, _P),
     # img, out, nb, h, w, template, search, inv, bf16, stream
     "mbfp_nlm": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # img, stdmax, out, nb, h, w, win, tap, k, otsu, stream

@@ -14,7 +14,9 @@ min(exp(0.75*log(max(sum exp(-d2/sd2 - dth^2/so2)*wa*wb / (possible+1e-6),
 
 Validity is baked into the coordinates as the grouped TPU kernel does:
 invalid A slots sit at (+1e6, +1e6) and invalid B slots at (-1e6, -1e6),
-so no invalid pairing passes the distance gate and no mask is needed.
+so no invalid pairing passes the distance gate and no mask is needed. The
+plain twin stages that as feature planes (``_features``); the kernel reads
+the matcher's own tensors and displaces on load, so a call is one launch.
 
 ``hypothesis_scores`` dispatches on the device: CPU tensors run
 ``hypothesis_scores_plain``, CUDA tensors launch the kernel; anything else
@@ -40,7 +42,8 @@ from .ransac import (MatchParams, MatchResult, _cos_sin, _finish_match, _fma,
 # Hypotheses per step of the plain twin: the fma emulation's float64
 # (P, 25, K, K) temporaries are 0.42 GB each at P=512, K=64.
 _HYP_CHUNK = 25
-_MAX_K = 128           # kernel D: at most 4 A minutiae per lane
+_MAX_K = 128           # kernel D: 7 index bits under the quantized distance
+_HYP_BLOCK = 32        # kernel D: hypotheses per block, grid (P, ceil(H/32))
 
 
 def _features(a: MinutiaeSet, b: MinutiaeSet, wa, wb):
@@ -104,6 +107,14 @@ def hypothesis_scores_plain(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
     return torch.cat(scores, dim=1), torch.cat(counts, dim=1)
 
 
+def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the kernel reads it; no copy (and no launch) when it already
+    has the type and is contiguous, as the matcher's tensors are."""
+    if x.dtype == dtype and x.is_contiguous():
+        return x
+    return x.to(dtype).contiguous()
+
+
 def hypothesis_scores_cuda(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
                            has_cand, possible, p: MatchParams):
     """Kernel D on CUDA tensors; same contract as the plain twin."""
@@ -116,24 +127,27 @@ def hypothesis_scores_cuda(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
         raise ValueError(f"K={k} must be a power of two <= {_MAX_K}")
     if b.valid.shape != (pnum, k) or theta.shape != (pnum, h) \
             or t.shape != (pnum, h, 2) or has_cand.shape != (pnum, h) \
-            or possible.shape != (pnum,):
+            or possible.shape != (pnum,) or wa.shape != (pnum, k) \
+            or wb.shape != (pnum, k):
         raise ValueError("inconsistent pair/hypothesis shapes")
-    if pnum >= 2 ** 31 or -(-h // 8) > 65535:      # grid (P, ceil(H/8))
+    if pnum >= 2 ** 31 or -(-h // _HYP_BLOCK) > 65535:
         raise ValueError(f"P={pnum} or H={h} out of range")
     scores = torch.empty((pnum, h), dtype=torch.float32, device=theta.device)
     counts = torch.empty((pnum, h), dtype=torch.int32, device=theta.device)
     if pnum == 0 or h == 0:
         return scores, counts
-    fa, fb = _features(a, b, wa, wb)
-    hyp = torch.stack([theta, t[..., 0], t[..., 1], has_cand],
-                      dim=1).to(torch.float32).contiguous()      # (P, 4, H)
-    poss = possible.to(torch.float32).contiguous()
+    f32 = torch.float32
+    args = [_as(x, dt) for ms, w in ((a, wa), (b, wb))
+            for x, dt in ((ms.xy, f32), (ms.orientation, f32),
+                          (ms.minutia_type, torch.int32),
+                          (ms.valid, torch.bool), (w, f32))]
+    args += [_as(x, f32) for x in (theta, t, has_cand, possible)]
     dist2, sigma_d2, sigma_o2 = _gate_constants(p)
     rc = _build.load_library().mbfp_hypothesis_scores(
-        fa.data_ptr(), fb.data_ptr(), hyp.data_ptr(), poss.data_ptr(),
-        scores.data_ptr(), counts.data_ptr(), pnum, h, k,
-        dist2, p.orient_thresh, sigma_d2, sigma_o2, int(bool(p.use_type)),
-        int(p.min_inliers), _build.current_stream(theta))
+        *(x.data_ptr() for x in args), scores.data_ptr(), counts.data_ptr(),
+        pnum, h, k, dist2, p.orient_thresh, sigma_d2, sigma_o2,
+        int(bool(p.use_type)), int(p.min_inliers),
+        _build.current_stream(theta))
     _build.check(rc, "mbfp_hypothesis_scores")
     _build.LAUNCHES["match"] += 1
     return scores, counts

@@ -1,13 +1,16 @@
-"""Zhang-Suen thinning: kernel C (``csrc/thin.cu``) and its plain twin.
+"""Zhang-Suen thinning: kernel C (``csrc/thin.cu``) and its plain twins.
 
 Replaces the TPU kernel ``ops/pallas_bitpack.py:zs_thin_bitpacked``, which
 thinned 32 images per int32 plane inside VMEM. On the card one block holds
-one image in shared memory for the whole fixpoint, so the image crosses
-device memory once each way; the loop is bound by shared-memory traffic and
-block barriers (see the source).
+one image for the whole fixpoint, packed 32 pixels of a row to a word, so
+the image crosses device memory once each way and a subpass is about 100
+bitwise operations per word (see the source).
 
 ``zs_thin`` dispatches on the device: CPU tensors run ``zs_thin_plain``,
 CUDA tensors launch the kernel; anything else raises.
+``zs_thin_words_plain`` is the kernel's word algebra in PyTorch; no path
+uses it, it holds that algebra to ``zs_thin_plain`` where the kernel cannot
+run.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from ..kernels import build as _build
 
 _SMEM_LIMIT = 232448     # bytes of shared memory one Hopper block may use
+_WORD = 32               # pixels of a row per packed word
 
 
 def _ring(x: torch.Tensor) -> list[torch.Tensor]:
@@ -71,23 +75,114 @@ def zs_thin_plain(mask: torch.Tensor, max_iters: int = 128,
     return prune_isolated_plain(out) if prune else out
 
 
+def pack_words(mask: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) mask -> (..., H, ceil(W/32)) int32 words; bit i of word k
+    is pixel 32k + i of the row, the padding bits of the last word are 0."""
+    w = mask.shape[-1]
+    bits = F.pad(mask.to(torch.int64), (0, -w % _WORD))
+    bits = bits.reshape(bits.shape[:-1] + (-1, _WORD))
+    u = (bits << torch.arange(_WORD, device=mask.device)).sum(dim=-1)
+    return (u - ((u >> 31) << 32)).to(torch.int32)    # as two's complement
+
+
+def unpack_words(words: torch.Tensor, w: int) -> torch.Tensor:
+    """Inverse of ``pack_words`` for rows of ``w`` pixels: a bool mask."""
+    bits = (words[..., None] >> torch.arange(_WORD, device=words.device)) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :w].to(torch.bool)
+
+
+def _word_ring(c: torch.Tensor) -> list[torch.Tensor]:
+    """The neighbour planes [P2..P9] of (..., H, Wd) words: the rows above
+    and below, and one-bit shifts that carry in the edge bit of the word to
+    the left or right (zeros at the frame's border)."""
+    pad = F.pad(c, (1, 1, 1, 1))
+    h, wd = c.shape[-2:]
+
+    def at(dy, dk):
+        return pad[..., 1 + dy:1 + dy + h, 1 + dk:1 + dk + wd]
+
+    def east(dy):     # bit i takes pixel i + 1: a logical shift right
+        return ((at(dy, 0) >> 1) & 0x7FFFFFFF) | ((at(dy, 1) & 1) << 31)
+
+    def west(dy):
+        return (at(dy, 0) << 1) | ((at(dy, -1) >> 31) & 1)
+
+    return [at(-1, 0), east(-1), east(0), east(1),
+            at(1, 0), west(1), west(0), west(-1)]
+
+
+def _maj(a, b, c):
+    return (a & b) | (c & (a ^ b))
+
+
+def _words_subpass(c: torch.Tensor, first: bool) -> torch.Tensor:
+    """One subpass on packed words, the kernel's algebra term by term."""
+    p = _word_ring(c)
+    p2, p3, p4, p5, p6, p7, p8, p9 = p
+    # B = p2 + ... + p9 as bit planes b0, b1, b2 (B == 8 has b1 == b2 == 0)
+    s0, c0 = p2 ^ p3 ^ p4, _maj(p2, p3, p4)
+    s1, c1 = p5 ^ p6 ^ p7, _maj(p5, p6, p7)
+    s2, c2 = p8 ^ p9, p8 & p9
+    b0, d0 = s0 ^ s1 ^ s2, _maj(s0, s1, s2)
+    u0, e0 = c0 ^ c1 ^ c2, _maj(c0, c1, c2)
+    b1, e1 = u0 ^ d0, u0 & d0
+    b2 = e0 ^ e1
+    ok_b = (b1 | b2) & ~(b0 & b1 & b2)                 # 2 <= B <= 6
+    one, two = torch.zeros_like(c), torch.zeros_like(c)
+    for i in range(8):                                 # A == 1
+        t = ~p[i] & p[(i + 1) & 7]
+        two = two | (one & t)
+        one = one | t
+    prod = p4 & p6 & (p2 | p8) if first else p2 & p8 & (p4 | p6)
+    return c & ~(ok_b & one & ~two & ~prod)
+
+
+def zs_thin_words_plain(mask: torch.Tensor, max_iters: int = 128,
+                        prune: bool = False) -> torch.Tensor:
+    """Kernel C's design in PyTorch: pack each row 32 pixels to an int32
+    word, thin with the bit-sliced subpass, each image to its own fixpoint
+    or ``max_iters``, prune with one more bitwise pass, unpack. Same
+    contract as ``zs_thin_plain``."""
+    h, w = mask.shape[-2:]
+    words = pack_words(mask.reshape(-1, h, w) != 0)
+    live = torch.ones(words.shape[0], dtype=torch.bool, device=mask.device)
+    for _ in range(max_iters):
+        if not bool(live.any()):
+            break
+        new = _words_subpass(_words_subpass(words[live], True), False)
+        changed = (new != words[live]).flatten(1).any(dim=1)
+        words[live] = new
+        live[live.clone()] = changed
+    if prune:
+        any_nbr = torch.zeros_like(words)
+        for q in _word_ring(words):
+            any_nbr |= q
+        words &= any_nbr
+    return unpack_words(words, w).reshape(mask.shape)
+
+
 def zs_thin_cuda(mask: torch.Tensor, max_iters: int = 128,
                  prune: bool = False) -> torch.Tensor:
-    """Kernel C on a CUDA (..., H, W) mask; same contract as the plain twin."""
+    """Kernel C on a CUDA (..., H, W) mask; same contract as the plain twin.
+    Any H, W >= 1 whose packed image (4 * H * ceil(W/32) bytes) fits one
+    block's shared memory: 1024x1024 does, 2048x1024 does not."""
     if mask.device.type != "cuda":
         raise ValueError(f"zs_thin_cuda needs a CUDA tensor, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"zs_thin_cuda needs a bool/uint8 mask, got {mask.dtype}")
     h, w = mask.shape[-2:]
-    if h * w > _SMEM_LIMIT:
-        raise ValueError(f"{h}x{w} image exceeds one block's shared memory")
+    if h < 1 or w < 1 or 4 * h * (-(-w // _WORD)) > _SMEM_LIMIT:
+        raise ValueError(f"{h}x{w} image: the packed image must fit one "
+                         f"block's shared memory ({_SMEM_LIMIT} bytes)")
+    if mask.dtype != torch.bool:
+        mask = mask != 0                 # the kernel packs bytes that are 0 or 1
     flat = mask.reshape(-1, h, w).contiguous()
     b = flat.shape[0]
     if b == 0 or b >= 2 ** 31:
         raise ValueError(f"batch {b} out of range")
     out = torch.empty((b, h, w), dtype=torch.bool, device=mask.device)
     rc = _build.load_library().mbfp_zs_thin(
-        flat.view(torch.uint8).data_ptr(), out.data_ptr(), b, h, w,
+        flat.data_ptr(), out.data_ptr(), b, h, w,
         int(max_iters), int(bool(prune)), _build.current_stream(mask))
     _build.check(rc, "mbfp_zs_thin")
     _build.LAUNCHES["thin"] += 1

@@ -49,7 +49,9 @@ def quantiles_bisect(x: torch.Tensor, qs, iters: int = 24,
     qs = torch.atleast_1d(torch.as_tensor(qs, dtype=torch.float32,
                                           device=x.device))
     nq = qs.shape[0]
-    v = (n - 1) * qs / 100.0                      # virtual order stats
+    # virtual order stats; a tensor divisor, so a true division on every
+    # device (see cuda_kernels.bin_to_unit)
+    v = (n - 1) * qs / torch.full((), 100.0, device=x.device)
     k0 = torch.floor(v)
     ks = torch.cat([k0, torch.ceil(v)])           # (2Q,)
     thresh = ks + 1.0                             # count needed to cover k-th
@@ -66,7 +68,7 @@ def quantiles_bisect(x: torch.Tensor, qs, iters: int = 24,
         lo, hi = torch.where(covered, lo, mid), torch.where(covered, mid, hi)
     if snap_u8:
         # order statistics sit on the 1/255 grid; rounding recovers them
-        hi = torch.round(hi * 255.0) / 255.0
+        hi = bin_to_unit(torch.round(hi * 255.0))
     lo_stat = hi[..., :nq]
     hi_stat = hi[..., nq:]
     return lo_stat + (v - k0) * (hi_stat - lo_stat)
@@ -75,7 +77,7 @@ def quantiles_bisect(x: torch.Tensor, qs, iters: int = 24,
 def quantiles_u8(x: torch.Tensor, qs) -> torch.Tensor:
     """Exact np.percentile over trailing two dims for u8-grid data in [0,1].
     Returns (..., len(qs)) in [0,1]."""
-    xq = _to_u8(x).to(torch.float32) / 255.0
+    xq = bin_to_unit(_to_u8(x).to(torch.float32))
     return quantiles_bisect(xq, qs, iters=16, snap_u8=True)
 
 
@@ -90,7 +92,7 @@ def percentile_stretch(x: torch.Tensor, p_low: float = 0.5,
                        p_high: float = 99.5,
                        axes: tuple[int, ...] = (-2, -1)) -> torch.Tensor:
     """Percentile contrast stretch to [0,1] on the u8 grid."""
-    xq = _to_u8(x).to(torch.float32) / 255.0
+    xq = bin_to_unit(_to_u8(x).to(torch.float32))
     q = quantiles_u8(xq, [p_low, p_high])
     lo = q[..., 0][..., None, None]
     hi = q[..., 1][..., None, None]

@@ -228,3 +228,37 @@ def test_whole_slice_kernel_path(jax_chain, jax_kernel_chain):
 def test_gabor_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.preprocess_fingerprint(torch.zeros(32, 32), gabor=True)
+
+
+def test_quality_scores_equal_numpy_true_division():
+    """The centre bonus divides by w / 2 and h / 2 (160 at 320 rows: no power
+    of two) as tensors; on the CPU the quality scores equal the formula
+    evaluated with numpy's true float32 division bit for bit."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
+        quality as TQ)
+    g = np.random.default_rng(21)
+    b, k, h, w = 2, 64, 320, 256
+    sk = (g.random((b, h, w)) < 0.2).astype(np.float32)
+    den, coh = (g.random((b, h, w), dtype=np.float32) for _ in range(2))
+    ori = (g.random((b, h, w), dtype=np.float32) - 0.5) * np.float32(np.pi)
+    xy = np.stack([g.integers(0, w, (b, k)), g.integers(0, h, (b, k))],
+                  axis=-1).astype(np.float32)
+    z = torch.zeros((b, k))
+    ms = TF.MinutiaeSet(torch.from_numpy(xy), z.to(torch.int32), z, z, z, z,
+                        torch.ones((b, k), dtype=torch.bool))
+    out = TQ._enrich(ms, *(torch.from_numpy(a) for a in (sk, den, ori, coh)),
+                     0.15, 0.2, 30, 15)
+    assert int(out.valid.sum()) > 20
+    x, y = xy[..., 0].astype(np.int64), xy[..., 1].astype(np.int64)
+    rows = np.arange(b)[:, None]
+    xf, yf = x.astype(np.float32), y.astype(np.float32)
+    bonus = np.float32(1.0) - np.float32(0.5) * (
+        (np.abs(xf - np.float32(w / 2.0)) / np.float32(w / 2.0)) ** 2
+        + (np.abs(yf - np.float32(h / 2.0)) / np.float32(h / 2.0)) ** 2)
+    score = (np.float32(0.5) * out.coherence.numpy()
+             + np.float32(0.25) * den[rows, y, x]
+             + np.float32(0.1) * out.angular_stability.numpy()
+             + np.float32(0.1) * sk[rows, y, x]) * bonus
+    want = np.where(out.valid.numpy(), score, np.float32(0)).astype(np.float32)
+    np.testing.assert_array_equal(out.quality.numpy().view(np.uint32),
+                                  want.view(np.uint32))

@@ -107,3 +107,54 @@ def test_clahe_matches_pallas_interpret(rng):
     x = _u8_images(rng, 1, 64, 64)
     ref = clahe_pallas(jnp.asarray(x), 2.5, 8, interpret=True)
     _assert_clahe_close(ref, T.clahe(_t(x), 2.5, 8))
+
+
+# --- true divisions ---------------------------------------------------------
+#
+# PyTorch on CUDA turns `tensor / python_scalar` into a multiplication by a
+# reciprocal, one ulp off a true division for divisors that are no power of
+# two, so the port divides by tensors. On the CPU both forms divide truly;
+# these tests pin the values to numpy's true division and the source to the
+# tensor form.
+
+def _np_u8_grid(x):
+    return (np.clip(np.rint(x * np.float32(255)), 0, 255).astype(np.float32)
+            / np.float32(255))
+
+
+def _np_quantiles(xq, qs):
+    """np.percentile('linear') in float32, from sorted order statistics."""
+    flat = np.sort(xq.reshape(xq.shape[0], -1), axis=-1)
+    v = (np.float32(flat.shape[-1] - 1) * np.asarray(qs, np.float32)
+         / np.float32(100))
+    k0, k1 = np.floor(v), np.ceil(v)
+    lo, hi = flat[:, k0.astype(int)], flat[:, k1.astype(int)]
+    return lo + (v - k0) * (hi - lo)
+
+
+@pytest.mark.parametrize("qs", [[0.5, 99.5], [2.0, 37.0, 50.0, 98.0]])
+def test_quantiles_u8_equal_numpy_true_division(rng, bench_pair, qs):
+    for x in (bench_pair, rng.random((3, 64, 48), dtype=np.float32)):
+        want = _np_quantiles(_np_u8_grid(x), qs)
+        got = T.quantiles_u8(_t(x), qs).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_percentile_stretch_equals_numpy_true_division(rng, bench_pair):
+    for x in (bench_pair, rng.random((3, 64, 48), dtype=np.float32)):
+        xq = _np_u8_grid(x)
+        q = _np_quantiles(xq, [0.5, 99.5])
+        lo, hi = q[:, 0, None, None], q[:, 1, None, None]
+        want = np.clip((xq - lo) / np.maximum(hi - lo, np.float32(1e-8)),
+                       0, 1).astype(np.float32)
+        got = T.percentile_stretch(_t(x), 0.5, 99.5).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("module", ["ops/histogram.py", "features/quality.py"])
+def test_no_division_by_a_python_scalar_that_is_no_power_of_two(module):
+    from pathlib import Path
+    src = (Path(T.__file__).resolve().parent.parent / module).read_text()
+    for form in ("/ 255.0", "/ 100.0", "/ (w / 2.0)", "/ (h / 2.0)", "/ 255)",
+                 "/ 100)"):
+        assert form not in src, form

@@ -433,3 +433,214 @@ def test_evaluation_metrics_equal_jax_package(case):
         _, far = jmet.evaluate_far_across_thresholds(imp, n)
         assert tmet.compute_eer(thr, frr, far) == jmet.compute_eer(thr, frr,
                                                                   far)
+
+
+# --- the identities kernel D's distance loop rests on -----------------------
+#
+# The twin quantizes q = min(round(d2 * 256), 2^18 - 1) and keeps the first
+# j of the smallest q. csrc/match.cu has no rounding instruction, no `* 256`
+# and no clamp instruction in its loop: it scales the positions by a power
+# of two, saturates the fused multiply-add, and rounds by adding a bias
+# whose ulp is the quantization step. Held here in float32 on the CPU.
+
+_S = float(2 ** 18 - 1)
+CSRC = Path(tcm.__file__).resolve().parent.parent / "csrc" / "match.cu"
+
+
+def _rounding_inputs():
+    """Every half-integer in [0, 2^18 + 2] with its float32 neighbours, the
+    integers between, and values far beyond the saturation."""
+    half = np.arange(0, 2 ** 18 + 3, dtype=np.float32) + np.float32(0.5)
+    whole = np.arange(0, 2 ** 18 + 3, dtype=np.float32)
+    far = np.asarray([1e6, 1e12, 3e14], np.float32)
+    x = np.concatenate([half, np.nextafter(half, np.float32(0)),
+                        np.nextafter(half, np.float32(np.inf)), whole, far])
+    return torch.from_numpy(x)
+
+
+def test_bias_add_rounds_half_to_even_after_the_clamp():
+    """(min(x, S) + 1.5 * 2^23) - 1.5 * 2^23 == min(round(x), S): rint is
+    monotone and fixes the integer S, and the add rounds to nearest even at
+    an ulp of 1."""
+    x = _rounding_inputs()
+    want = torch.clamp(torch.round(x), max=_S)
+    bias = torch.tensor(12582912.0)
+    got = (torch.clamp(x, max=_S) + bias) - bias
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_kernel_d_saturate_and_bias_give_the_twins_quantization():
+    """The form the kernel ships: x / 2^18 saturated at 1 (the fma's .sat),
+    plus 48.0 (ulp 2^-18 in [32, 64)), leaves q in the low mantissa bits,
+    bits = 0x42400000 + q with q <= 2^18; min(q, S) is the twin's value."""
+    src = CSRC.read_text()
+    assert "constexpr float kScale = 0.03125f;" in src          # 2^-5
+    assert "constexpr float kBias = 48.0f;" in src
+    assert "constexpr unsigned kKeyBase = 0x20000000u;" in src
+    assert "fma.rn.sat.f32" in src
+    loop = src[src.index("nn_key("):src.index("__global__")]
+    for word in ("rintf", "nearbyintf", "roundf", "fminf", "256"):
+        assert word not in loop, word
+    x = _rounding_inputs()
+    want = torch.clamp(torch.round(x), max=_S)
+    v = torch.clamp(x * 2.0 ** -18, max=1.0) + 48.0
+    assert v.dtype == torch.float32
+    q = v.view(torch.int32) - 0x42400000
+    assert int(q.min()) == 0 and int(q.max()) == 2 ** 18
+    np.testing.assert_array_equal(torch.clamp(q, max=2 ** 18 - 1).numpy(),
+                                  want.numpy().astype(np.int32))
+    # the key the kernel minimises, (bits << 7) + j modulo 2^32, is
+    # kKeyBase + (q << 7) + j: it never wraps, so it orders like (q, j)
+    assert (0x42400000 << 7) % 2 ** 32 == 0x20000000
+    assert 0x20000000 + (2 ** 18 << 7) + 127 < 2 ** 32
+
+
+def _fixture_distances(parity_td, hyps=12):
+    """Transformed A positions and B positions of the fixture pairs as the
+    twin forms them, displaced slots included: tax, tay (P, H, K), bx, by
+    (P, K), B's validity, and the twin's (j, q) per (P, H, K). Pair 3 has
+    no valid B slot, pair 5 no valid A slot, pairs 6-11 scattered validity,
+    and the last two hypotheses of every pair put A minutia 0 or 1 onto the
+    point the invalid B slots are displaced to."""
+    pairs = np.concatenate([tds.genuine_pairs(parity_td),
+                            tds.impostor_pairs(parity_td, 100, 42)])[:48]
+    a, b = trun._gather(parity_td, pairs[:, 0]), trun._gather(parity_td,
+                                                              pairs[:, 1])
+    g = np.random.default_rng(23)
+    a = a._replace(valid=a.valid.clone())
+    b = b._replace(valid=b.valid.clone())
+    b.valid[3] = False
+    a.valid[5] = False
+    b.valid[6:12] &= torch.from_numpy(g.random((6, 64)) < 0.7)
+    a.valid[6:12] &= torch.from_numpy(g.random((6, 64)) < 0.7)
+    wa, wb, *_ = tr._pair_stats(a, b)
+    p = tr.MatchParams(ransac_iter=hyps)
+    theta, t, _ = tr.sample_hypotheses(a, b, wa, wb, p)
+    for h, i in ((-1, 0), (-2, 1)):
+        rot = tr._apply_rigid(a.xy[:, i], theta[:, h], 0.0)
+        t[:, h] = torch.tensor([-1e6 + 3.0, -1e6 - 2.0]) - rot
+    fa, fb = tcm._features(a, b, wa, wb)
+    assert float(fa[:, 0].max()) == 1e6 and float(fb[:, 0].min()) == -1e6
+    c, s = tr._cos_sin(theta[..., None])
+    tax = tr._fma(c, fa[:, 0, None], -(s * fa[:, 1, None])) + t[..., 0, None]
+    tay = tr._fma(s, fa[:, 0, None], c * fa[:, 1, None]) + t[..., 1, None]
+    dx = tax[..., None] - fb[:, 0, None, None]
+    dy = tay[..., None] - fb[:, 1, None, None]
+    j, d2_at = tr._nn_select(tr._fma(dx, dx, dy * dy))
+    return (tax, tay, fb[:, 0], fb[:, 1], b.valid, j,
+            (d2_at * 256.0).to(torch.int64))
+
+
+@pytest.mark.parametrize("scale", [16.0, 2.0 ** -5])
+def test_prescaled_fma_equals_scaled_distance(parity_datasets, scale):
+    """fma(s dx, s dx, (s dy)(s dy)) == s^2 fma(dx, dx, dy dy) bit for bit
+    for a power of two s, through the port's ``_fma``, on the fixture pairs'
+    real coordinates and their displaced slots: 16 gives d2 * 256, 2^-5
+    (the kernel's) gives d2 * 256 / 2^18."""
+    tax, tay, bx, by, *_ = _fixture_distances(parity_datasets[1])
+    dx, dy = tax[..., None] - bx[:, None, None], tay[..., None] - by[:, None, None]
+    d2 = tr._fma(dx, dx, dy * dy)
+    assert float(d2.max()) > 1e12 and float(d2.min()) < 1.0
+    want = d2 * (scale * scale)
+    sdx = tax[..., None] * scale - (bx * scale)[:, None, None]
+    sdy = tay[..., None] * scale - (by * scale)[:, None, None]
+    got = tr._fma(sdx, sdx, sdy * sdy)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+def test_kernel_d_key_selects_the_twins_neighbour(parity_datasets):
+    """The kernel's search, emulated: scaled positions, saturated fma, bias,
+    integer key and unsigned minimum over the valid B slots only (kept in
+    their order, so the compacted position orders like j); one more
+    distance to the displaced point stands for every invalid slot under
+    the lowest invalid index; the smaller (q, j) wins; `q >= S -> (S, 0)`.
+    It picks the twin's j and q for every A slot: with scattered validity,
+    where an A minutia lands on the displaced point (an invalid slot is
+    then the nearest), and with no valid B slot (j = 0, q = 2^18 - 1)."""
+    src = CSRC.read_text()
+    assert "if (qi < q || (qi == q && j_invalid < j)) { q = qi; j = j_invalid; }" in src
+    tax, tay, bx, by, b_valid, j_twin, q_twin = _fixture_distances(
+        parity_datasets[1])
+    sc, k = 2.0 ** -5, bx.shape[-1]
+    px, py = tax * sc, tay * sc
+
+    def q_bits(ox, oy):
+        dx, dy = px[..., None] - ox, py[..., None] - oy
+        v = torch.clamp(tr._fma(dx, dx, dy * dy), max=1.0) + 48.0
+        return (v.view(torch.int32).to(torch.int64) << 7) & 0xFFFFFFFF
+
+    key = q_bits((bx * sc)[:, None, None], (by * sc)[:, None, None]) \
+        + torch.arange(k)
+    key = torch.where(b_valid[:, None, None, :], key, 0xFFFFFFFF)
+    best = key.min(dim=-1).values
+    q, j = (best - 0x20000000) >> 7, best & 127
+    first_invalid = torch.where(b_valid.all(dim=-1), k,
+                                torch.argmin(b_valid.to(torch.uint8), dim=-1))
+    far = torch.tensor(-1e6) * sc
+    qi = (q_bits(far[None], far[None])[..., 0] - 0x20000000) >> 7
+    ji = first_invalid[:, None, None].expand_as(j)
+    take = (ji < k) & ((qi < q) | ((qi == q) & (ji < j)))
+    q, j = torch.where(take, qi, q), torch.where(take, ji, j)
+    sat = q >= 2 ** 18 - 1
+    q, j = torch.where(sat, 2 ** 18 - 1, q), torch.where(sat, 0, j)
+    assert 0.05 < float(sat.float().mean()) < 0.95
+    # an invalid slot is the nearest neighbour somewhere, unsaturated
+    assert int((take & ~sat).sum()) >= 40
+    np.testing.assert_array_equal(j.numpy(), j_twin.numpy())
+    np.testing.assert_array_equal(q.numpy(), q_twin.numpy())
+    assert bool((j_twin[3, :-2] == 0).all())
+    assert bool((q_twin[3, :-2] == 2 ** 18 - 1).all())
+
+
+def test_all_invalid_b_template_counts_nothing(parity_datasets):
+    """Twin level: with every B slot invalid each A minutia's nearest
+    neighbour is slot 0 at the saturated distance, beyond the distance
+    gate: count 0 and score 0 for every hypothesis."""
+    td = parity_datasets[1]
+    pairs = tds.genuine_pairs(td)[:4]
+    a, b = trun._gather(td, pairs[:, 0]), trun._gather(td, pairs[:, 1])
+    b = b._replace(valid=torch.zeros_like(b.valid))
+    wa, wb, _, _, possible, _ = tr._pair_stats(a, b)
+    p = tr.MatchParams(ransac_iter=8, **FRR_GATES)
+    theta, t, cand = tr.sample_hypotheses(a, b, wa, wb, p)
+    s, c = tcm.hypothesis_scores(a, b, wa, wb, theta, t, cand, possible, p)
+    assert int(c.abs().sum()) == 0 and float(s.abs().sum()) == 0.0
+    fa, fb = tcm._features(a, b, wa, wb)
+    d2 = ((fa[:, 0, :, None] - fb[:, 0, None, :]) ** 2
+          + (fa[:, 1, :, None] - fb[:, 1, None, :]) ** 2)
+    j, d2_at = tr._nn_select(d2)
+    assert int(j.abs().sum()) == 0
+    assert bool((d2_at == (2 ** 18 - 1) / 256.0).all())
+
+
+def test_kernel_d_angle_wrap_equals_remainder():
+    """csrc/match.cu wraps the orientation difference without fmodf where
+    the quotient is 0 or 1: v below 2 pi, v -+ 2 pi below 4 pi (an exact
+    float subtraction), fmodf beyond. In float32 that is the twin's
+    |remainder(x + pi, 2 pi) - pi| bit for bit."""
+    src = CSRC.read_text()
+    assert "else if (av < 2.0f * kTwoPi) r = copysignf(__fsub_rn(av, kTwoPi), v);" in src
+    g = np.random.default_rng(17)
+    pi, two_pi = np.float32(math.pi), np.float32(2.0 * math.pi)
+    edge = np.asarray([0.0, math.pi, -math.pi, 2 * math.pi, -2 * math.pi,
+                       3 * math.pi, -3 * math.pi, 5 * math.pi, -5 * math.pi],
+                      np.float32)
+    edge = np.concatenate([edge, np.nextafter(edge, np.float32(np.inf)),
+                           np.nextafter(edge, np.float32(-np.inf))])
+    x = np.concatenate([
+        g.uniform(-3 * math.pi - 1, 3 * math.pi + 1, 1_000_000),
+        g.uniform(-100, 100, 200_000), edge]).astype(np.float32)
+    v = x + pi
+    av = np.abs(v)
+    r = np.where(av < two_pi, v,
+                 np.where(av < np.float32(2.0) * two_pi,
+                          np.copysign(av - two_pi, v), np.fmod(v, two_pi)))
+    r = np.where(r < 0, r + two_pi, r)
+    got = np.abs(r - pi)
+    assert got.dtype == np.float32
+    t = torch.from_numpy(x)
+    want = torch.abs(torch.remainder(t + math.pi, 2.0 * math.pi) - math.pi)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  want.numpy().view(np.uint32))

@@ -203,6 +203,32 @@ def test_kernel_sources_exist():
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
 
+def test_kernel_d_reads_the_matchers_tensors():
+    """Kernel D's entry point takes the matcher's own tensors (five fields
+    per template side, four hypothesis tensors, two outputs): no staging
+    launches before it. The kernel it replaced stays beside the tool that
+    holds the two together, outside the package's build."""
+    sig = build._SIGNATURES["mbfp_hypothesis_scores"]
+    assert sig.count(build._P) == 17 and len(sig) == 26   # 16 tensors + stream
+    src = (build.CSRC_DIR / "match.cu").read_text()
+    assert 'extern "C" int mbfp_hypothesis_scores(' in src
+    for word in ("rintf", "nearbyintf", "wgmma does not apply"):
+        assert (word in src) == (word == "wgmma does not apply"), word
+    parent = ROOT / "tools" / "match_parent.cu"
+    assert "rintf" in parent.read_text()
+    assert "match_parent.cu" not in build.SOURCES
+
+
+def test_thinning_wrapper_takes_large_and_ragged_frames():
+    """Kernel C's wrapper refuses a frame only when its packed image
+    (4 * H * ceil(W/32) bytes) exceeds one block's shared memory."""
+    fits = lambda h, w: 4 * h * -(-w // 32) <= cuda_thin._SMEM_LIMIT
+    assert fits(1024, 1024) and fits(512, 512) and fits(1, 1) and fits(320, 250)
+    assert not fits(2048, 1024)
+    src = (build.CSRC_DIR / "thin.cu").read_text()
+    assert "kSmemLimit = 232448" in src and "__syncthreads_or" in src
+
+
 def test_launch_counters_untouched_on_cpu():
     before = dict(build.LAUNCHES)
     m = torch.from_numpy(np.random.default_rng(0).random((1, 16, 16)) < 0.5)
@@ -285,7 +311,9 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/port_output_digest.py"])
+                                    "tools/port_output_digest.py",
+                                    "tools/nlm_variants.py",
+                                    "tools/match_variants.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has

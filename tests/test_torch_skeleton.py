@@ -1,6 +1,7 @@
 """Port parity: Zhang-Suen thinning (kernel C's plain twin) and the prune
 of isolated pixels, against the JAX package's XLA form and its bit-packed
-Pallas kernel (interpret mode) on the CPU. Skeletons must match exactly."""
+Pallas kernel (interpret mode) on the CPU; and kernel C's word-parallel
+algebra in PyTorch against that twin. Skeletons must match exactly."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ from multimodal_biometric_fingerprints_palms_tpu.ops.pallas_bitpack import (
     zs_thin_bitpacked)
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import skeleton as T
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_thin import (
-    zs_thin)
+    pack_words, unpack_words, zs_thin, zs_thin_plain, zs_thin_words_plain)
 
 torch.set_num_threads(1)
 
@@ -55,3 +56,53 @@ def test_thin_iteration_cap():
         np.testing.assert_array_equal(
             np.asarray(J.skeletonize(jnp.asarray(m), max_iters=iters)),
             T.skeletonize(torch.from_numpy(m), max_iters=iters).numpy())
+
+
+# --- kernel C's word algebra (zs_thin_words_plain) ---------------------------
+
+def _word_masks(h, w):
+    """Ridge masks, the trivial planes, the checkerboard and one-pixel
+    lines (rows, columns, a diagonal), as one batch."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([*_ridge_masks(4, 2, h, w),
+                     np.ones((h, w), bool), np.zeros((h, w), bool),
+                     (yy + xx) % 2 == 0,
+                     yy % 3 == 0, xx % 3 == 0, yy == xx])
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 128])
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("w", [32, 40, 64, 250])
+def test_words_plain_equals_plain(w, prune, max_iters):
+    """The bit-sliced subpass on 32-pixel words (kernel C's algebra: adder
+    tree, transition count, carries across words and the ragged last word)
+    removes exactly the pixels the pixel-per-element twin removes."""
+    m = torch.from_numpy(_word_masks(24, w))
+    got = zs_thin_words_plain(m, max_iters, prune)
+    assert got.dtype == torch.bool and got.shape == m.shape
+    np.testing.assert_array_equal(
+        got.numpy(), zs_thin_plain(m, max_iters, prune).numpy())
+
+
+def test_words_plain_matches_bitpacked_interpret():
+    m = _ridge_masks(5, 2, 32, 40)
+    ref = zs_thin_bitpacked(jnp.asarray(m), prune=True, interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(ref),
+        zs_thin_words_plain(torch.from_numpy(m), 128, prune=True).numpy())
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 70, 250])
+def test_pack_unpack_round_trip(w):
+    m = torch.from_numpy(np.random.default_rng(w).random((2, 5, w)) < 0.5)
+    words = pack_words(m)
+    assert words.dtype == torch.int32 and words.shape == (2, 5, -(-w // 32))
+    assert torch.equal(unpack_words(words, w), m)
+    # bit i of word k is pixel 32k + i; the padding bits are zero
+    x = w - 1
+    one = torch.zeros((1, w), dtype=torch.bool)
+    one[0, x] = True
+    expect = np.zeros(-(-w // 32), np.uint32)
+    expect[x // 32] = np.uint32(1) << np.uint32(x % 32)
+    np.testing.assert_array_equal(
+        pack_words(one).numpy().view(np.uint32)[0], expect)

@@ -12,8 +12,11 @@ tree, so two checkouts see the same images), and prints one JSON line of
 SHA-256 digests: the denoised image, the binary mask, the skeleton and every
 field of the minutiae set. With ``--compare`` it runs itself once per
 checkout, each in a process of its own, and exits 1 unless every digest
-agrees. A kernel change that claims bit-equal outputs is checked this way,
-the parent commit unpacked beside the change (``git archive``).
+agrees; for every field that differs it prints how many elements moved and
+by how much at most (the tensors themselves pass through ``--save`` files
+in a temporary directory). A kernel change that claims bit-equal outputs is
+checked this way, the parent commit unpacked beside the change
+(``git archive``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -38,7 +42,7 @@ def _synthetic():
     return mod
 
 
-def digests(root: Path, batch: int) -> dict:
+def digests(root: Path, batch: int, save: Path | None = None) -> dict:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("port_output_digest: needs a GPU")
@@ -49,10 +53,11 @@ def digests(root: Path, batch: int) -> dict:
         preprocess_fingerprint)
     syn = _synthetic()
     out = {"card": torch.cuda.get_device_name(0)}
+    kept = {}
 
-    def sha(t):
-        return hashlib.sha256(
-            t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:24]
+    def sha(key, t):
+        kept[key] = t.detach().cpu().contiguous()
+        return hashlib.sha256(kept[key].numpy().tobytes()).hexdigest()[:24]
 
     for name, imgs in (("make_batch", syn.make_batch(batch)),
                        ("blob_prints", syn.blob_prints(range(16)))):
@@ -60,10 +65,27 @@ def digests(root: Path, batch: int) -> dict:
         ms = postprocess_minutiae(extract_minutiae(res.skeleton), res.skeleton)
         torch.cuda.synchronize()
         for field in ("denoised", "binary", "skeleton"):
-            out[f"{name}.{field}"] = sha(getattr(res, field))
+            key = f"{name}.{field}"
+            out[key] = sha(key, getattr(res, field))
         for field, value in zip(ms._fields, ms):
-            out[f"{name}.minutiae.{field}"] = sha(value)
+            key = f"{name}.minutiae.{field}"
+            out[key] = sha(key, value)
+    if save is not None:
+        torch.save(kept, save)
     return out
+
+
+def moved(a, b) -> str:
+    """How far two tensors of one field are apart."""
+    import torch
+    if a.shape != b.shape:
+        return f"shapes {tuple(a.shape)} and {tuple(b.shape)}"
+    ne = a != b
+    if a.dtype.is_floating_point:
+        ne &= ~(torch.isnan(a) & torch.isnan(b))
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()[ne]
+    return (f"{int(ne.sum())} of {a.numel()} elements, max |d| "
+            f"{float(d.max()) if d.numel() else 0.0:.6g}")
 
 
 def main() -> None:
@@ -71,23 +93,33 @@ def main() -> None:
     ap.add_argument("--root", type=Path)
     ap.add_argument("--compare", nargs=2, type=Path, metavar="CHECKOUT")
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--save", type=Path,
+                    help="with --root: also write the tensors to this file")
     args = ap.parse_args()
     if args.root:
-        print(json.dumps(digests(args.root.resolve(), args.batch)))
+        print(json.dumps(digests(args.root.resolve(), args.batch, args.save)))
         return
     if not args.compare:
         ap.error("give --root or --compare")
-    runs = []
-    for root in args.compare:
-        res = subprocess.run(
-            [sys.executable, __file__, "--root", str(root), "--batch",
-             str(args.batch)], capture_output=True, text=True, check=False)
-        if res.returncode:
-            raise SystemExit(f"{root}: failed\n{res.stdout}\n{res.stderr}")
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(f"{root}: {runs[-1]}")
+    import torch
+    runs, tensors = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(args.compare):
+            res = subprocess.run(
+                [sys.executable, __file__, "--root", str(root), "--batch",
+                 str(args.batch), "--save", f"{tmp}/{i}.pt"],
+                capture_output=True, text=True, check=False)
+            if res.returncode:
+                raise SystemExit(f"{root}: failed\n{res.stdout}\n{res.stderr}")
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            tensors.append(torch.load(f"{tmp}/{i}.pt"))
+            print(f"{root}: {runs[-1]}")
     differ = [k for k in runs[0] if runs[0][k] != runs[1].get(k)]
-    print(f"fields compared {len(runs[0])}, fields that differ: "
+    for k in differ:
+        if k in tensors[0] and k in tensors[1]:
+            print(f"  {k}: {moved(tensors[0][k], tensors[1][k])}")
+    n = len(runs[0]) - 1      # the card's name is no tensor
+    print(f"tensors compared {n}, tensors that differ: "
           f"{differ if differ else 'none'}")
     sys.exit(1 if differ else 0)
 
