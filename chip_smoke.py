@@ -9,8 +9,10 @@ and drives both paths of the port on the card:
 - enhance + extract: checks kernels A (CLAHE), B (connected components),
   C (thinning), E (non-local means), F (binarize front) and G
   (open/erode/reconstruct) against their plain PyTorch twins at the main
-  path's shapes (batch 128 of 320x256 images, on real stage inputs), then
-  drives ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
+  path's shapes (batch 128 of 320x256 images, on real stage inputs), A and
+  F also against the kernels they replaced (``tools/clahe_parent.cu``,
+  ``tools/binarize_parent.cu``, built here) and on odd tile sides and a
+  1024x1024 frame, then drives ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
   ``postprocess_minutiae`` on ``make_batch(128)`` (the port's copy of the
   JAX benchmark's input, ``utils/synthetic.py``), asserts that it
   went through every kernel, and checks its output;
@@ -886,25 +888,43 @@ def main() -> None:
                 (2.5, _quantize_u8(res.segmented))]
     clahe_err = 0.0
     print("kernel A (CLAHE):")
+    variants = load_tool("binarize_clahe_variants")
+    a_parent, a_regs = variants.build_parent("mbfp_clahe")
+    f_parent, f_regs = variants.build_parent("mbfp_binarize_front")
+    print("  parent kernels built (tools/clahe_parent.cu, "
+          "tools/binarize_parent.cu): ptxas: " + "; ".join(a_regs + f_regs))
     for clip, inp in clahe_in:
-        a = cuda_kernels.clahe_cuda(inp, clip, 8)
+        a, lut = cuda_kernels.clahe_cuda(inp, clip, 8, return_lut=True)
         b = cuda_kernels.clahe_plain(inp, clip, 8)
+        lut_bad = int((lut != cuda_kernels.clahe_lut_plain(inp, clip, 8)).sum())
+        old = int((a != variants.run_a(a_parent, True, inp, clip)[0]).sum())
         torch.cuda.synchronize()
         d = (a - b).abs()
         err = float(d.max())
         off = float((d > 1e-6).float().mean())
-        print(f"  clip {clip}: max|d| {err:.3g}, pixels off {off:.3g}")
+        print(f"  clip {clip}: max|d| {err:.3g}, pixels off {off:.3g}; LUT "
+              f"entries that differ from clahe_lut_plain {lut_bad} / "
+              f"{lut.numel()}; pixels that differ from the parent kernel {old}")
         if not torch.isfinite(a).all() or err > CLAHE_ATOL or off > CLAHE_MAX_OFF:
             fail(f"CLAHE clip {clip} outside tolerance")
+        if lut_bad or old:
+            fail(f"CLAHE clip {clip}: LUTs differ from the twin's or the "
+                 "image from the parent kernel's")
         clahe_err = max(clahe_err, err)
     inp = clahe_in[0][1]
+    clahe_parent_ms = time_ms(
+        lambda: variants.run_a(a_parent, True, inp, 2.5), 20)
     clahe_ms = time_ms(lambda: cuda_kernels.clahe_cuda(inp, 2.5, 8), 20)
     clahe_plain_ms = time_ms(lambda: cuda_kernels.clahe_plain(inp, 2.5, 8), 5)
     npx = x.numel()
     # image in, image out; per pixel the bin, four LUT reads and the blend
     clahe_bound = bound(8.0 * npx, 15.0 * npx)
     print(f"  time per call: kernel {clahe_ms:.4f} ms, plain {clahe_plain_ms:.4f} ms, "
+          f"parent kernel {clahe_parent_ms:.4f} ms, "
           f"bound {clahe_bound[0]:.4f} ms ({clahe_bound[1]})")
+    clahe_ops = profile_ops(lambda: cuda_kernels.clahe_cuda(inp, 2.5, 8))
+    print(f"  device ops of one wrapper call: {len(clahe_ops)} "
+          f"({top_ops(clahe_ops, 3)})")
 
     print("kernel B (CC label + filter):")
     binary_smooth = smooth_fingerprint_skeleton(res.binary.float())
@@ -1010,6 +1030,16 @@ def main() -> None:
     print(f"  Sauvola alone: mismatches {s_bad} / {fg.numel()}")
     if s_bad > F_MAX_MISMATCH * fg.numel():
         fail("kernel F (Sauvola alone) differs beyond the bound")
+    for what, otsu, got in (("hybrid", True, fg),
+                            ("Sauvola alone", False,
+                             cuda_binarize.sauvola_cuda(img_eq))):
+        old = int((got != variants.run_f(f_parent, True, img_eq, 25,
+                                         otsu)).sum())
+        print(f"  {what}: pixels that differ from the parent kernel {old}")
+        if old:
+            fail(f"kernel F ({what}) differs from the parent kernel")
+    f_parent_ms = time_ms(
+        lambda: variants.run_f(f_parent, True, img_eq, 25, True), 20)
     f_ms = time_ms(lambda: cuda_binarize.binarize_foreground_cuda(img_eq), 20)
     f_plain_ms = time_ms(
         lambda: cuda_binarize.binarize_foreground_plain(img_eq), 3)
@@ -1018,12 +1048,40 @@ def main() -> None:
     # threshold, and its share of the patch's histogram and Otsu scan
     f_bound = bound(5.0 * npx, 215.0 * npx)
     print(f"  time per call: kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
+          f"parent kernel {f_parent_ms:.4f} ms, "
           f"bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+    sv_parent_ms = time_ms(
+        lambda: variants.run_f(f_parent, True, img_eq, 25, False), 20)
     sv_ms = time_ms(lambda: cuda_binarize.sauvola_cuda(img_eq), 20)
     sv_plain_ms = time_ms(lambda: cuda_binarize.sauvola_plain(img_eq), 3)
     sv_bound = bound(5.0 * npx, 212.0 * npx)      # F without the Otsu share
     print(f"  Sauvola alone, time per call: kernel {sv_ms:.4f} ms, plain "
-          f"{sv_plain_ms:.4f} ms, bound {sv_bound[0]:.4f} ms ({sv_bound[1]})")
+          f"{sv_plain_ms:.4f} ms, parent kernel {sv_parent_ms:.4f} ms, bound "
+          f"{sv_bound[0]:.4f} ms ({sv_bound[1]})")
+    if sv_ms < sv_bound[0]:
+        fail("kernel F (Sauvola alone) timed under its bound")
+    f_ops = profile_ops(
+        lambda: cuda_binarize.binarize_foreground_cuda(img_eq))
+    print(f"  device ops of one wrapper call: {len(f_ops)} "
+          f"({top_ops(f_ops, 4)})")
+    # the file runner's staging size: one frame of 1024 x 1024
+    big = torch.rand((1, 1024, 1024), generator=torch.Generator(
+        device="cpu").manual_seed(9)).to(dev)
+    compare_exact("binarize front 1024x1024",
+                  lambda: cuda_binarize.binarize_foreground_cuda(big),
+                  lambda: cuda_binarize.binarize_foreground_plain(big))
+    compare_exact("sauvola 1024x1024",
+                  lambda: cuda_binarize.sauvola_cuda(big),
+                  lambda: cuda_binarize.sauvola_plain(big))
+    for win in (5, 33):       # windows the kernel does not unroll for
+        compare_exact(f"binarize front 1024x1024, win {win}",
+                      lambda: cuda_binarize.binarize_foreground_cuda(big, win),
+                      lambda: cuda_binarize.binarize_foreground_plain(big, win))
+    print(f"  1024x1024, time per call: kernel "
+          f"{time_ms(lambda: cuda_binarize.binarize_foreground_cuda(big), 20):.4f}"
+          f" ms, plain "
+          f"{time_ms(lambda: cuda_binarize.binarize_foreground_plain(big), 3):.4f}"
+          " ms")
 
     print("kernel B alone, per mode (K6 is fill_holes on the object-filtered mask):")
     kept = cuda_cc.cc_filter_cuda(fg, "remove_small", 1, min_size=80)
@@ -1115,12 +1173,20 @@ def main() -> None:
             compare_exact(f"binarize front {h}x{w}",
                           lambda: cuda_binarize.binarize_foreground_cuda(img),
                           lambda: cuda_binarize.binarize_foreground_plain(img))
-        if h % 8 == 0 and w % 8 == 0:
-            img = torch.rand((4, h, w), generator=g).to(dev)
-            d = (cuda_kernels.clahe_cuda(img, 2.0, 8)
-                 - cuda_kernels.clahe_plain(img, 2.0, 8)).abs()
-            print(f"  clahe {h}x{w}: max|d| {float(d.max()):.3g}")
-            if float(d.max()) > CLAHE_ATOL:
+    # kernel A on small frames, odd tile sides (9 x 5, 5 x 3) and one pixel a
+    # tile included, random and on the u8 grid: image and LUTs
+    for h, w in ((32, 32), (48, 64), (64, 64), (40, 24), (72, 40), (8, 8)):
+        for kind in ("random", "u8 grid"):
+            img = torch.rand((4, h, w), generator=g)
+            if kind == "u8 grid":
+                img = torch.round(img * 255.0) / 255.0
+            img = img.to(dev)
+            a, lut = cuda_kernels.clahe_cuda(img, 2.0, 8, return_lut=True)
+            d = (a - cuda_kernels.clahe_plain(img, 2.0, 8)).abs()
+            lut_bad = int((lut != cuda_kernels.clahe_lut_plain(img, 2.0, 8)).sum())
+            print(f"  clahe {h}x{w} {kind} (tiles {h // 8}x{w // 8}): max|d| "
+                  f"{float(d.max()):.3g}, LUT entries that differ {lut_bad}")
+            if float(d.max()) > CLAHE_ATOL or lut_bad:
                 fail("CLAHE outside tolerance at a small shape")
 
     # 4. main path, counted and timed
@@ -1237,6 +1303,13 @@ def main() -> None:
     # included), and the largest score difference between the two
     kernels[3].update({key: d[key] for key in (
         "device_ops_per_call", "parent_ms", "max_abs_diff_parent")})
+    # for kernels A and F likewise: device operations of one wrapper call and
+    # the time of the kernel each replaced, taken in the same run
+    kernels[0].update(device_ops_per_call=len(clahe_ops),
+                      parent_ms=clahe_parent_ms)
+    kernels[5].update(device_ops_per_call=len(f_ops), parent_ms=f_parent_ms,
+                      sauvola_alone_ms=sv_ms,
+                      sauvola_alone_parent_ms=sv_parent_ms)
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):

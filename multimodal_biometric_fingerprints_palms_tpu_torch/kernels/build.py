@@ -58,8 +58,9 @@ _SIGNATURES = {
                                _I, _P),
     # img, out, nb, h, w, template, search, inv, bf16, stream
     "mbfp_nlm": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    # img, stdmax, out, nb, h, w, win, tap, k, otsu, stream
-    "mbfp_binarize_front": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    # img, mean, std, stdmax, out, nb, h, w, win, tap, k, otsu, stream
+    "mbfp_binarize_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                            _P),
     # mask, out, nb, h, w, stream
     "mbfp_open_erode_reconstruct": (_P, _P, _I, _I, _I, _P),
 }

@@ -6,8 +6,10 @@ Kernel F replaces the front of the TPU kernels
 and ``binarize_fused_pallas``, and ``sauvola_binarize_pallas``: adaptive
 Sauvola (window 25, k-map ``k * (1 - 0.5 * std_n)``) OR-ed with a
 per-32x32-patch Otsu threshold gated by the patch std (>= 3/255). Two
-launches over 32x32 tiles (max std per image, then threshold + Otsu), in the
-twin's operation order; bound by instruction issue (see the source).
+device launches a call: box mean and std of every pixel, once, into scratch
+with each image's max(std); then the threshold, with the Otsu half of a
+patch on four warps. Both in the twin's operation order; bound by the
+instruction rate (see the source).
 
 The rest of the TPU split is composition here. Its phase 2
 (``_binarize_phase2_kernel``) filled holes below ``max_size`` with two
@@ -66,6 +68,70 @@ def binarize_foreground_plain(img_eq: torch.Tensor, win: int = 25,
     return binary | ((img_eq < thr) & (p_std >= 3.0 / 255.0))
 
 
+def box_mean_std_passes_plain(img: torch.Tensor, win: int = 25):
+    """Box mean and std of (..., H, W) as kernel F's launch 1 takes them:
+    ``fl(tap * a)`` and ``fl(tap * fl(a * a))`` formed once per element, the
+    vertical sums added in tap order, ``fl(tap * v)`` formed once per
+    vertical sum, the horizontal sums added in tap order. No path uses it;
+    the tests hold it to ``box_filter`` bit for bit."""
+    from .filters import _pad_axis
+    tap = float(np.float32(1.0 / win))
+    c = win // 2
+
+    def sums(plane, axis):
+        n = plane.shape[axis]
+        padded = _pad_axis(plane, plane.ndim + axis, c, win - 1 - c, "reflect")
+        out = padded.narrow(axis, 0, n)
+        for t in range(1, win):
+            out = out + padded.narrow(axis, t, n)
+        return out
+
+    mean = sums(tap * sums(tap * img, -2), -1)
+    sqmean = sums(tap * sums(tap * (img * img), -2), -1)
+    return mean, torch.sqrt(torch.clamp(sqmean - mean * mean, min=0.0))
+
+
+def otsu_patch_passes_plain(img_eq: torch.Tensor, patch: int = 32):
+    """Per-patch Otsu bin and patch std of (..., H, W) as kernel F's launch
+    2 takes them: omega and mu as eight bins a lane plus a scan over the
+    lanes, the patch mean and variance as a butterfly over the columns of
+    each row and then over the rows. Returns (bin, std), each
+    (..., H/patch, W/patch). No path uses it; the tests hold it to
+    ``otsu_threshold_patchwise`` and to the twin's patch std."""
+    from .cuda_kernels import _butterfly_sum, _to_bins
+    lead = img_eq.shape[:-2]
+    h, w = img_eq.shape[-2:]
+    gh, gw = h // patch, w // patch
+    blocks = img_eq.reshape(lead + (gh, patch, gw, patch)).transpose(-3, -2)
+    area = float(patch * patch)
+    hist = torch.zeros(lead + (gh, gw, 256), dtype=torch.float32,
+                       device=img_eq.device)
+    hist.scatter_add_(-1, _to_bins(blocks).flatten(-2),
+                      torch.ones(lead + (gh, gw, patch * patch),
+                                 device=img_eq.device))
+    p = (hist / area).reshape(lead + (gh, gw, 32, 8))
+    bins = torch.arange(256, dtype=torch.float32,
+                        device=img_eq.device).reshape(32, 8)
+
+    def scan(terms):
+        local = torch.cumsum(terms, dim=-1)           # a lane's eight bins
+        total = torch.cumsum(local[..., -1], dim=-1)  # over the lanes
+        before = torch.cat([torch.zeros_like(total[..., :1]),
+                            total[..., :-1]], dim=-1)
+        return (before[..., None] + local).flatten(-2)
+
+    omega, mu = scan(p), scan(p * bins)
+    denom = omega * (1.0 - omega)
+    sigma_b = torch.where(denom > 1e-8, (mu[..., -1:] * omega - mu) ** 2
+                          / torch.clamp(denom, min=1e-8),
+                          torch.zeros((), device=img_eq.device))
+    arg = torch.argmax(sigma_b, dim=-1).to(torch.float32)
+    mean = _butterfly_sum(_butterfly_sum(blocks)) / area
+    centred = blocks - mean[..., None, None]
+    var = _butterfly_sum(_butterfly_sum(centred * centred)) / area
+    return arg, torch.sqrt(var)
+
+
 def _front_cuda(img_eq: torch.Tensor, win: int, k: float, otsu: bool,
                 name: str) -> torch.Tensor:
     if img_eq.device.type != "cuda":
@@ -83,10 +149,15 @@ def _front_cuda(img_eq: torch.Tensor, win: int, k: float, otsu: bool,
     b = flat.shape[0]
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} outside 1..65535")
+    if h * w >= 2 ** 31 or -(-h // _TILE) > 65535:
+        raise ValueError(f"frame ({h}, {w}) too large for kernel F")
     stdmax = torch.zeros((b,), dtype=torch.int32, device=flat.device)
+    mean_std = torch.empty((2, b, h, w), dtype=torch.float32,
+                           device=flat.device)
     out = torch.empty((b, h, w), dtype=torch.bool, device=flat.device)
     rc = _build.load_library().mbfp_binarize_front(
-        flat.data_ptr(), stdmax.data_ptr(), out.data_ptr(), b, h, w, int(win),
+        flat.data_ptr(), mean_std[0].data_ptr(), mean_std[1].data_ptr(),
+        stdmax.data_ptr(), out.data_ptr(), b, h, w, int(win),
         float(np.float32(1.0 / win)), float(k), int(otsu),
         _build.current_stream(flat))
     _build.check(rc, "mbfp_binarize_front")

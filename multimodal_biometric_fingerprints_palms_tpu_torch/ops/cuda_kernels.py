@@ -3,13 +3,15 @@
 Replaces the TPU kernel ``ops/pallas_kernels.py:clahe_pallas``
 (``_clahe_kernel_v2`` / ``_clahe_kernel``), which built per-tile histograms
 and applied the LUTs as one-hot MXU matmuls. On the card the work is tiny
-(one read of the image, one write, a 256-entry table per tile), so the
-kernel is bound by memory traffic and launch latency: pass 1 builds each
-tile's histogram with shared-memory atomics and turns it into a LUT with
-one thread (the same operation order as the plain version, so the LUT is
-bit-equal); pass 2 blends the four neighbouring LUTs per pixel with
-explicitly rounded float ops (no FMA contraction), matching the plain
-version's arithmetic.
+(a 256-entry table per tile, four table reads and a blend per pixel), so
+the kernel is bound by memory traffic. Two device launches a call: pass 1
+builds each tile's histogram in per-warp sub-histograms and turns it into a
+byte LUT with one thread a bin (the excess and the CDF are sums that are
+exact in float32 in any order up to a tile area of 65,536, so the LUT is
+bit-equal to the plain version's; larger tiles keep its serial order);
+pass 2 stages the 3 x 3 neighbouring LUTs and the tile's row table in
+shared memory and blends per pixel with explicitly rounded float ops (no
+FMA contraction), matching the plain version's arithmetic.
 
 ``clahe`` dispatches on the tensor's device: CPU -> ``clahe_plain``,
 CUDA -> ``clahe_cuda``; anything else raises.
@@ -22,6 +24,7 @@ import torch
 from ..kernels import build as _build
 
 NBINS = 256
+_MAX_TILE_ROWS = 2560    # pass 2 keeps 16 bytes a tile row in shared memory
 
 
 def _clip_limit(clip_limit: float, tile_area: int) -> float:
@@ -79,6 +82,61 @@ def clahe_lut_plain(x: torch.Tensor, clip_limit: float = 2.5,
     return lut.reshape(lead + (grid, grid, NBINS))
 
 
+def _butterfly_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (a power of two) as a warp butterfly takes it:
+    element i adds element i ^ off for off = n/2 .. 1."""
+    n = v.shape[-1]
+    idx = torch.arange(n, device=v.device)
+    off = n // 2
+    while off:
+        v = v + v[..., idx ^ off]
+        off //= 2
+    return v[..., 0]
+
+
+def clahe_lut_scan_plain(x: torch.Tensor, clip_limit: float = 2.5,
+                         grid: int = 8) -> torch.Tensor:
+    """``clahe_lut_plain`` with its two sums taken in the order of kernel
+    A's pass 1 (a thread a bin, 8 warps): the excess as a butterfly over
+    each warp's 32 bins and then over the warps in turn, the CDF as a
+    Hillis-Steele scan inside each warp plus the sum of the warps before
+    it; returned as the kernel stores it, uint8. No path uses it; the tests
+    hold it to ``clahe_lut_plain`` (the sums are exact in float32 in any
+    order while a tile holds at most 65,536 pixels)."""
+    lead = x.shape[:-2]
+    h, w = x.shape[-2:]
+    th, tw = h // grid, w // grid
+    area = th * tw
+    v = _to_bins(x.reshape(-1, h, w))
+    tiles = v.reshape(-1, grid, th, grid, tw).transpose(2, 3).reshape(-1, area)
+    hist = torch.zeros((tiles.shape[0], NBINS), dtype=torch.float32,
+                       device=x.device)
+    hist.scatter_add_(1, tiles, torch.ones(tiles.shape, dtype=torch.float32,
+                                           device=x.device))
+    limit = _clip_limit(clip_limit, area)
+    warps = torch.clamp(hist - limit, min=0.0).reshape(-1, 8, 32)
+    partial = _butterfly_sum(warps)
+    excess = torch.zeros_like(partial[:, 0])
+    for k in range(8):
+        excess = excess + partial[:, k]
+    cdf = (torch.clamp(hist, max=limit)
+           + (excess / NBINS)[:, None]).reshape(-1, 8, 32)
+    lane = torch.arange(32, device=x.device)
+    off = 1
+    while off < 32:
+        up = cdf[..., torch.clamp(lane - off, min=0)]
+        cdf = torch.where(lane >= off, cdf + up, cdf)
+        off *= 2
+    before = torch.zeros_like(cdf[:, 0, 0])
+    for k in range(8):
+        total = cdf[:, k, 31].clone()
+        cdf[:, k] = before[:, None] + cdf[:, k]
+        before = before + total
+    lut = torch.clamp(torch.round(cdf.reshape(-1, NBINS)
+                                  * ((NBINS - 1.0) / area)), 0, 255)
+    return lut.to(torch.uint8).reshape(lead + (grid, grid, NBINS))
+
+
 def clahe_plain(x: torch.Tensor, clip_limit: float = 2.5,
                 grid: int = 8) -> torch.Tensor:
     """Plain PyTorch CLAHE over (..., H, W) float32 in [0, 1]."""
@@ -105,9 +163,11 @@ def clahe_plain(x: torch.Tensor, clip_limit: float = 2.5,
     return torch.clamp(bin_to_unit(out), 0.0, 1.0).reshape(lead + (h, w))
 
 
-def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5,
-               grid: int = 8) -> torch.Tensor:
-    """Kernel A on a CUDA tensor; same contract as ``clahe_plain``."""
+def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5, grid: int = 8,
+               return_lut: bool = False):
+    """Kernel A on a CUDA tensor; same contract as ``clahe_plain``. With
+    ``return_lut`` also the tiles' LUTs as pass 1 left them,
+    (..., grid, grid, 256) uint8 (``clahe_lut_plain``'s values)."""
     if x.device.type != "cuda":
         raise ValueError(f"clahe_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
@@ -120,8 +180,10 @@ def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5,
     b = flat.shape[0]
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} outside 1..65535")
+    if h * w >= 2 ** 31 or h // grid > _MAX_TILE_ROWS:
+        raise ValueError(f"frame ({h}, {w}) too large for kernel A")
     area = (h // grid) * (w // grid)
-    lut = torch.empty((b, grid, grid, NBINS), dtype=torch.float32,
+    lut = torch.empty((b, grid, grid, NBINS), dtype=torch.uint8,
                       device=x.device)
     out = torch.empty_like(flat)
     lib = _build.load_library()
@@ -130,7 +192,10 @@ def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5,
                         (NBINS - 1.0) / area, _build.current_stream(x))
     _build.check(rc, "mbfp_clahe")
     _build.LAUNCHES["clahe"] += 1
-    return out.reshape(lead + (h, w))
+    out = out.reshape(lead + (h, w))
+    if return_lut:
+        return out, lut.reshape(lead + (grid, grid, NBINS))
+    return out
 
 
 def clahe(x: torch.Tensor, clip_limit: float = 2.5, grid: int = 8) -> torch.Tensor:

@@ -135,3 +135,78 @@ def test_fill_holes_phase2_is_the_4_connected_hole_fill():
     m = torch.from_numpy(_split_batch())
     assert torch.equal(TB.fill_holes_phase2(m, 25),
                        TC.cc_filter(m, "fill_holes", 1, max_size=25))
+
+
+# --- the identities kernel F's two launches rest on -------------------------
+#
+# Launch 1 forms tap * element once per element and adds the products in tap
+# order, vertical pass first; launch 2 takes the Otsu prefix sums eight bins
+# a lane plus a scan over the lanes. Both must give the twin's bits.
+
+def _frames(kind, shape):
+    g = np.random.default_rng(sum(shape))
+    x = g.random(shape, dtype=np.float32)
+    if kind == "u8":
+        x = (np.round(x * 255) / 255).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("kind", ["random", "u8"])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 33, 70), (2, 7, 130)])
+@pytest.mark.parametrize("win", [25, 33])
+def test_premultiplied_box_filter_is_bit_equal(win, shape, kind):
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.filters import (
+        box_filter)
+    x = _frames(kind, shape)
+    mean, std = TB.box_mean_std_passes_plain(x, win)
+    ref = box_filter(x, win)
+    sq = box_filter(x * x, win)
+    assert torch.equal(mean, ref)
+    assert torch.equal(std, torch.sqrt(torch.clamp(sq - ref * ref, min=0.0)))
+    assert float(std.max()) > 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_otsu_prefix_sums_are_order_free(seed):
+    """omega and mu sum multiples of 1/1024 below 256: any order of the
+    additions gives the same float32 bits."""
+    g = np.random.default_rng(seed)
+    counts = np.bincount(g.integers(0, 256, 1024) // (1 + 3 * seed),
+                         minlength=256).astype(np.float32)
+    p = torch.from_numpy(counts) / 1024.0
+    bins = torch.arange(256, dtype=torch.float32)
+    perm = torch.from_numpy(g.permutation(256))
+    for terms in (p, p * bins):
+        serial = torch.zeros(())
+        for t in terms:
+            serial = serial + t
+        shuffled = torch.zeros(())
+        for t in terms[perm]:
+            shuffled = shuffled + t
+        tree = terms.clone()
+        while tree.numel() > 1:
+            tree = tree[0::2] + tree[1::2]
+        assert serial == shuffled == tree[0] == torch.cumsum(terms, 0)[-1]
+        # every prefix, taken backwards from the total, is exact too
+        back = serial - torch.cumsum(terms.flip(0), 0).flip(0) + terms
+        assert torch.equal(back, torch.cumsum(terms, 0))
+
+
+@pytest.mark.parametrize("kind", ["random", "u8", "ridges"])
+def test_otsu_patch_passes_match_the_twin(ridge_image, kind):
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_kernels import (
+        bin_to_unit)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.histogram import (
+        otsu_threshold_patchwise)
+    x = (torch.from_numpy(ridge_image) if kind == "ridges"
+         else _frames(kind, (3, 64, 96)))
+    arg, p_std = TB.otsu_patch_passes_plain(x)
+    thr = otsu_threshold_patchwise(x, 32)[..., ::32, ::32]
+    assert torch.equal(bin_to_unit(arg), thr)
+    lead, (h, w) = x.shape[:-2], x.shape[-2:]
+    blocks = x.reshape(lead + (h // 32, 32, w // 32, 32))
+    centred = blocks - blocks.mean(dim=(-3, -1), keepdim=True)
+    ref = torch.sqrt((centred * centred).mean(dim=(-3, -1)))
+    # another order of 1,024 additions: a few ulps, and the same gate
+    assert float((p_std - ref).abs().max()) <= 1e-6
+    assert torch.equal(p_std >= 3.0 / 255.0, ref >= 3.0 / 255.0)

@@ -12,7 +12,7 @@ from multimodal_biometric_fingerprints_palms_tpu.ops.pallas_kernels import (
     clahe_pallas)
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import histogram as T
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_kernels import (
-    clahe_lut_plain)
+    clahe_lut_plain, clahe_lut_scan_plain)
 
 torch.set_num_threads(1)
 
@@ -107,6 +107,35 @@ def test_clahe_matches_pallas_interpret(rng):
     x = _u8_images(rng, 1, 64, 64)
     ref = clahe_pallas(jnp.asarray(x), 2.5, 8, interpret=True)
     _assert_clahe_close(ref, T.clahe(_t(x), 2.5, 8))
+
+
+# --- the identities kernel A's pass 1 rests on -------------------------------
+#
+# A thread a bin: the excess summed as a tree, the CDF as a scan. The excess
+# sums integer-valued floats and the CDF multiples of 2^-8 up to the tile's
+# area, exact in float32 in any order up to an area of 65,536; the LUT's
+# values are integers 0..255, so bytes hold them.
+
+def _skewed(rng, b, h, w):
+    """u8-grid images with most pixels in a few bins: a large excess."""
+    v = np.where(rng.random((b, h, w)) < 0.7, rng.integers(100, 104, (b, h, w)),
+                 rng.integers(0, 256, (b, h, w)))
+    return (v / 255.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,grid", [((3, 64, 64), 8), ((2, 320, 256), 8),
+                                        ((2, 72, 40), 8), ((1, 512, 512), 2),
+                                        ((3, 8, 8), 8)])
+@pytest.mark.parametrize("clip", [2.0, 2.5, 40.0])
+def test_clahe_lut_in_scan_order_is_bit_equal(rng, shape, grid, clip):
+    for x in (_u8_images(rng, *shape), _skewed(rng, *shape),
+              rng.random(shape, dtype=np.float32)):
+        lut = clahe_lut_plain(_t(x), clip, grid)
+        assert torch.equal(lut, lut.to(torch.uint8).float())    # bytes hold it
+        scan = clahe_lut_scan_plain(_t(x), clip, grid)
+        assert scan.dtype == torch.uint8 and scan.shape == lut.shape
+        assert torch.equal(scan.float(), lut)
+    assert (512 // 2) ** 2 == 65536       # the largest order-free tile area
 
 
 # --- true divisions ---------------------------------------------------------

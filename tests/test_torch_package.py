@@ -6,6 +6,7 @@ version for a tensor that is not on the CPU."""
 import importlib
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -219,6 +220,25 @@ def test_kernel_d_reads_the_matchers_tensors():
     assert "match_parent.cu" not in build.SOURCES
 
 
+def test_kernels_f_and_a_take_scratch_from_the_wrapper():
+    """Kernel F's entry point takes the mean and std scratch planes beside
+    the max-std words (one filtering pass, two device launches), kernel A's
+    a byte LUT; the kernels they replaced stay beside the tool that holds
+    each pair together, outside the package's build."""
+    sig = build._SIGNATURES["mbfp_binarize_front"]
+    assert sig.count(build._P) == 6 and len(sig) == 13
+    src = (build.CSRC_DIR / "binarize.cu").read_text()
+    assert "mean_std_kernel" in src and "__match_any_sync" not in src
+    assert "uint8_t* lut" in (build.CSRC_DIR / "clahe.cu").read_text()
+    for parent, word in (("binarize_parent.cu", "std_max_kernel"),
+                         ("clahe_parent.cu", "float* lut")):
+        assert word in (ROOT / "tools" / parent).read_text()
+        assert parent not in build.SOURCES
+    tool = (ROOT / "tools" / "binarize_clahe_variants.py").read_text()
+    for old in re.findall(r'\("(constexpr [^"]+;)",', tool):
+        assert old in src + (build.CSRC_DIR / "clahe.cu").read_text(), old
+
+
 def test_thinning_wrapper_takes_large_and_ragged_frames():
     """Kernel C's wrapper refuses a frame only when its packed image
     (4 * H * ceil(W/32) bytes) exceeds one block's shared memory."""
@@ -313,7 +333,8 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/port_output_digest.py",
                                     "tools/nlm_variants.py",
-                                    "tools/match_variants.py"])
+                                    "tools/match_variants.py",
+                                    "tools/binarize_clahe_variants.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has
