@@ -8,12 +8,15 @@ and drives both paths of the port on the card:
 
 - enhance + extract: checks kernels A (CLAHE), B (connected components),
   C (thinning), E (non-local means), F (binarize front) and G
-  (open/erode/reconstruct) against their plain PyTorch twins at the main
-  path's shapes (batch 128 of 320x256 images, on real stage inputs), A and
-  F also against the kernels they replaced (``tools/clahe_parent.cu``,
-  ``tools/binarize_parent.cu``, built here) and on odd tile sides and a
-  1024x1024 frame, then drives ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
-  ``postprocess_minutiae`` on ``make_batch(128)`` (the port's copy of the
+  (open/erode/reconstruct, a one-pass cross opening) against their plain
+  PyTorch twins at the main path's shapes (batch 128 of 320x256 images, on
+  real stage inputs), A, F and G also against the kernels they replaced
+  (``tools/clahe_parent.cu``, ``tools/binarize_parent.cu``,
+  ``tools/morph_parent.cu``, built here), A and F on odd tile sides and a
+  1024x1024 frame, G on random, adversarial and ragged masks and on batches
+  of 512x512 and 1024x1024 frames, then drives ``preprocess_fingerprint``
+  -> ``extract_minutiae`` -> ``postprocess_minutiae`` on
+  ``make_batch(128)`` (the port's copy of the
   JAX benchmark's input, ``utils/synthetic.py``), asserts that it
   went through every kernel, and checks its output;
 - the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
@@ -43,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -137,23 +141,39 @@ def thinning_work(mask) -> float:
     return ops
 
 
-def reconstruct_work(mask) -> float:
-    """Operations kernel G's function needs on this batch: three 5-tap
-    stencils per pixel, then per sweep 9 operations for each pixel of
-    `opened` not reached yet, for as many synchronous sweeps as each image
-    needs (the last, which changes nothing, included)."""
+def opening_work(mask) -> float:
+    """Bitwise operations kernel G's function needs on this batch, whatever
+    implements it. The reconstruction returns the opening whatever the mask
+    (see ``csrc/morph.cu``), so the function is a cross erosion and a cross
+    dilation; on 32 pixels of a row as one word each is two one-bit funnel
+    shifts and four ANDs or ORs: 6 a word. The erosion is taken on the two
+    rows beside each band of 32 rows too, as any banded form must."""
+    nb, h, w = mask.reshape((-1,) + tuple(mask.shape[-2:])).shape
+    words = nb * -(-w // 32)
+    return 6.0 * words * (h + 2 * -(-h // 32)) + 6.0 * words * h
+
+
+def reconstruct_sweeps(mask):
+    """(sweeps per image, whether the fixpoint is the opening): the
+    synchronous 8-connected dilations of the marker inside the opening that
+    change anything, as the JAX kernel's fixpoint loop takes them. The
+    argument in ``csrc/morph.cu`` says 1 for every image with an opening
+    that the marker misses somewhere, else 0, and the fixpoint the
+    opening."""
+    import torch
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
         binary_dilate, binary_erode, binary_opening)
     opened = binary_opening(mask, 3, shape="ellipse")
     reached = binary_erode(opened, 3, shape="ellipse")
-    live = opened.new_ones(opened.shape[0], dtype=bool)
-    ops = 3 * 5.0 * mask.numel()
-    while bool(live.any()):
-        ops += 9.0 * float((opened & ~reached)[live].sum())
+    sweeps = torch.zeros(opened.shape[0], dtype=torch.int64,
+                         device=opened.device)
+    while True:
         new = binary_dilate(reached, 3, shape="rect") & opened
-        live = live & (new != reached).flatten(1).any(dim=1)
+        changed = (new != reached).flatten(1).any(dim=1)
+        if not bool(changed.any()):
+            return sweeps, bool(torch.equal(reached, opened))
+        sweeps += changed
         reached = new
-    return ops
 
 
 def time_ms(fn, reps: int) -> float:
@@ -383,6 +403,84 @@ def kernel_e_small_frames(dev) -> None:
             if not torch.isfinite(a).all() or not float(d.max()) <= NLM_ATOL:
                 fail(f"NLM {prec} outside tolerance at {h}x{w}")
         print(f"  nlm {h}x{w}: " + "; ".join(out))
+
+
+def kernel_g_phase(dev, cleaned, binary, tool, parent) -> dict:
+    """Kernel G against its plain twin, against ``open_cross_words_plain``
+    and against the kernel it replaced (``tools/morph_parent.cu``, wherever
+    that one takes the frame) on the main path's mask ``cleaned`` and on
+    ``tools/morph_variants.cases``; the reconstruction's changing sweeps on
+    ``cleaned`` (the identity, seen on the card); its time beside the
+    twin's, the parent's and the bound; the device operations of one call;
+    and its time on 512x512 and 1024x1024 batches."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_morph
+    compare_exact("binarize tail on the cleaned mask",
+                  lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned),
+                  lambda: cuda_morph.open_erode_reconstruct_plain(cleaned))
+    if not bool((cuda_morph.open_erode_reconstruct_cuda(cleaned) == binary).all()):
+        fail("F -> B -> G composed by hand differs from the path's binary mask")
+    sweeps, fixpoint_is_opening = reconstruct_sweeps(cleaned)
+    print(f"  the twin's reconstruction on the cleaned mask: changing sweeps "
+          f"per image {sorted(set(sweeps.tolist()))} (images with 1: "
+          f"{int((sweeps == 1).sum())} of {sweeps.numel()}); fixpoint equal "
+          f"to the opening: {fixpoint_is_opening}")
+    if int(sweeps.max()) > 1 or not fixpoint_is_opening:
+        fail("the reconstruction is not the identity on the cleaned mask")
+    # against the twin everywhere, the word algebra's twin on the card, and
+    # the parent kernel wherever it takes the frame
+    for case, m in tool.cases(cleaned).items():
+        got = cuda_morph.open_erode_reconstruct_cuda(m)
+        want = cuda_morph.open_erode_reconstruct_plain(m)
+        words = cuda_morph.open_cross_words_plain(m)
+        fits = m.shape[-2] * m.shape[-1] <= tool.PARENT_PIXELS
+        old = tool.run(parent, m) if fits else None
+        torch.cuda.synchronize()
+        bad = (int((got != want).sum()), int((got != words).sum()),
+               int((got != old).sum()) if fits else None)
+        print(f"  {case}: mismatches {bad[0]} against the twin, {bad[1]} "
+              f"against open_cross_words_plain, "
+              + (f"{bad[2]} against the parent kernel" if fits
+                 else "the parent refuses the frame")
+              + f" (of {m.numel()}; opening set {int(want.sum())})")
+        if any(bad[:2]) or bad[2]:
+            fail(f"kernel G differs on {case}")
+    kern = lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned)
+    old = lambda: tool.run(parent, cleaned)
+    # in turns: parent, kernel, kernel, parent
+    turns = [time_ms(fn, 20) for fn in (old, kern, kern, old)]
+    g_ms, g_parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    g_plain_ms = time_ms(
+        lambda: cuda_morph.open_erode_reconstruct_plain(cleaned), 3)
+    g_bound = bound(2.0 * cleaned.numel(), opening_work(cleaned))
+    print(f"  time per call, back to back: kernel {g_ms:.4f} ms, plain "
+          f"{g_plain_ms:.4f} ms, parent kernel {g_parent_ms:.4f} ms (in turns: "
+          + ", ".join(f"{t:.4f}" for t in turns)
+          + f"), bound {g_bound[0]:.4f} ms ({g_bound[1]})")
+    # ten calls a window: a window has been seen to come back one device
+    # op short, which rounds away over ten
+    calls = 10
+    g_ops = profile_ops(lambda: [kern() for _ in range(calls)])
+    parent_ops = profile_ops(lambda: [old() for _ in range(calls)])
+    g_per_call = round(len(g_ops) / calls)
+    g_dev = device_ms(g_ops) / max(len(g_ops), 1)
+    print(f"  device ops of {calls} wrapper calls: {len(g_ops)} "
+          f"({top_ops(g_ops, 2)}), {g_dev:.4f} ms each; the parent's: "
+          f"{len(parent_ops)}, "
+          f"{device_ms(parent_ops) / max(len(parent_ops), 1):.4f} ms each")
+    if g_per_call != 1:
+        fail(f"kernel G's wrapper launched {g_per_call} device ops a call, not 1")
+    for nb, side in ((16, 512), (4, 1024)):
+        big = torch.rand((nb, side, side), generator=torch.Generator(
+            device="cpu").manual_seed(side)).to(dev) < 0.8
+        b_ms, b_by = bound(2.0 * big.numel(), opening_work(big))
+        fn = lambda: cuda_morph.open_erode_reconstruct_cuda(big)
+        ops = profile_ops(lambda: [fn() for _ in range(calls)])
+        print(f"  ({nb}, {side}, {side}) random(0.8): kernel {time_ms(fn, 20):.4f}"
+              f" ms back to back, {device_ms(ops) / max(len(ops), 1):.4f} ms "
+              f"device time a call, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=g_ms, plain_ms=g_plain_ms, parent_ms=g_parent_ms,
+                bound=g_bound, device_ops_per_call=g_per_call, device_ms=g_dev)
 
 
 # --- the matcher ------------------------------------------------------------
@@ -889,10 +987,16 @@ def main() -> None:
     clahe_err = 0.0
     print("kernel A (CLAHE):")
     variants = load_tool("binarize_clahe_variants")
-    a_parent, a_regs = variants.build_parent("mbfp_clahe")
-    f_parent, f_regs = variants.build_parent("mbfp_binarize_front")
+    morph_tool = load_tool("morph_variants")
+    with ThreadPoolExecutor(max_workers=3) as pool:     # one nvcc each
+        jobs = (pool.submit(variants.build_parent, "mbfp_clahe"),
+                pool.submit(variants.build_parent, "mbfp_binarize_front"),
+                pool.submit(morph_tool.build_parent))
+        (a_parent, a_regs), (f_parent, f_regs), (g_parent, g_regs) = (
+            job.result() for job in jobs)
     print("  parent kernels built (tools/clahe_parent.cu, "
-          "tools/binarize_parent.cu): ptxas: " + "; ".join(a_regs + f_regs))
+          "tools/binarize_parent.cu, tools/morph_parent.cu): ptxas: "
+          + "; ".join(a_regs + f_regs + g_regs))
     for clip, inp in clahe_in:
         a, lut = cuda_kernels.clahe_cuda(inp, clip, 8, return_lut=True)
         b = cuda_kernels.clahe_plain(inp, clip, 8)
@@ -969,7 +1073,10 @@ def main() -> None:
     thin_ms = time_ms(lambda: cuda_thin.zs_thin_cuda(gated, 128, True), 20)
     thin_plain_ms = time_ms(lambda: cuda_thin.zs_thin_plain(gated, 128, True), 3)
     thin_bound = bound(2.0 * npx, thinning_work(gated))
-    print(f"  time per call: kernel {thin_ms:.4f} ms, plain {thin_plain_ms:.4f} ms, "
+    thin_dev = device_ms(profile_ops(
+        lambda: cuda_thin.zs_thin_cuda(gated, 128, True)))
+    print(f"  time per call: kernel {thin_ms:.4f} ms (device time of one call "
+          f"{thin_dev:.4f} ms), plain {thin_plain_ms:.4f} ms, "
           f"bound {thin_bound[0]:.4f} ms ({thin_bound[1]})")
     print("kernel C, other frames and masks:")
     kernel_c_frames(dev, gated)
@@ -1118,18 +1225,8 @@ def main() -> None:
         profile_ops(lambda: cuda_cc.cc_filter_cuda(
             binary_smooth, "clean", 1, min_size=64, max_size=80)), 6))
 
-    print("kernel G (open -> erode -> reconstruct):")
-    compare_exact("binarize tail on the cleaned mask",
-                  lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned),
-                  lambda: cuda_morph.open_erode_reconstruct_plain(cleaned))
-    if not bool((cuda_morph.open_erode_reconstruct_cuda(cleaned) == res.binary).all()):
-        fail("F -> B -> G composed by hand differs from the path's binary mask")
-    g_ms = time_ms(lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned), 20)
-    g_plain_ms = time_ms(
-        lambda: cuda_morph.open_erode_reconstruct_plain(cleaned), 3)
-    g_bound = bound(2.0 * npx, reconstruct_work(cleaned))
-    print(f"  time per call: kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, "
-          f"bound {g_bound[0]:.4f} ms ({g_bound[1]})")
+    print("kernel G (open -> erode -> reconstruct, a one-pass cross opening):")
+    g_res = kernel_g_phase(dev, cleaned, res.binary, morph_tool, g_parent)
     compare_exact("unsplit entry point (F -> B clean -> G) against the split",
                   lambda: cuda_binarize.binarize_fused(img_eq),
                   lambda: cuda_binarize.binarize_fused_split(img_eq))
@@ -1296,20 +1393,22 @@ def main() -> None:
               float(f_bad > 0), f_ms, f_plain_ms, f_bound),
         entry("open_erode_reconstruct", "morph.cu",
               f"{jax_ops}/pallas_bitpack.py:329", launches["morph"], 0.0,
-              g_ms, g_plain_ms, g_bound),
+              g_res["ms"], g_res["plain_ms"], g_res["bound"]),
     ]
     # for kernel D also: the device operations one wrapper call launches, its
     # time against the kernel it replaced (that one's input staging
     # included), and the largest score difference between the two
     kernels[3].update({key: d[key] for key in (
         "device_ops_per_call", "parent_ms", "max_abs_diff_parent")})
-    # for kernels A and F likewise: device operations of one wrapper call and
-    # the time of the kernel each replaced, taken in the same run
+    # for kernels A, F and G likewise: device operations of one wrapper call
+    # and the time of the kernel each replaced, taken in the same run
     kernels[0].update(device_ops_per_call=len(clahe_ops),
                       parent_ms=clahe_parent_ms)
     kernels[5].update(device_ops_per_call=len(f_ops), parent_ms=f_parent_ms,
                       sauvola_alone_ms=sv_ms,
                       sauvola_alone_parent_ms=sv_parent_ms)
+    kernels[6].update(device_ops_per_call=g_res["device_ops_per_call"],
+                      parent_ms=g_res["parent_ms"], device_ms=g_res["device_ms"])
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):

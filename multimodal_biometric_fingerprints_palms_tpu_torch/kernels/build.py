@@ -5,8 +5,9 @@ The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
 into a plain-C-interface ``.so`` on first use, then bound with ``ctypes``
 (pointers and the stream as ``c_void_p``). The library lands in
 ``build/torch_kernels/`` at the root of the checkout (git-ignored), named by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is compiled or loaded at import time.
+a hash of the sources, their headers and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once. Nothing is compiled or
+loaded at import time.
 
 ``LAUNCHES`` counts wrapper launches per kernel; each wrapper adds one where
 it launches its kernel and nowhere else.
@@ -29,6 +30,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # Every kernel source of the port; each is compiled into the one library.
 SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu", "nlm.cu",
            "binarize.cu", "morph.cu")
+# Headers the sources include; they are part of the library's hash.
+HEADERS = ("packed_words.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -82,7 +85,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

@@ -94,6 +94,21 @@ def test_open_erode_reconstruct_matches_pallas(kind):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("kind", ["ridges", "noise", "ragged"])
+def test_pallas_tail_is_the_cross_opening(kind):
+    """The JAX kernel's marker and reconstruction change nothing: its output
+    is the 3x3-cross opening, the one pass kernel G takes."""
+    m = (np.random.default_rng(8).random((3, 33, 70)) < 0.7
+         if kind == "ragged" else _masks(kind))
+    ref = np.asarray(JB.open_erode_reconstruct_packed(jnp.asarray(m),
+                                                      interpret=True))
+    opened = binary_opening(torch.from_numpy(m), 3, shape="ellipse")
+    np.testing.assert_array_equal(ref, opened.numpy())
+    np.testing.assert_array_equal(
+        TM.open_cross_words_plain(torch.from_numpy(m)).numpy(), ref)
+    assert ref.any()
+
+
 def _split_batch():
     """The batch of tests/test_pallas_cc.py's split tests: noise, ridges, a
     speck at the centre beside a big off-centre component, empty, full."""

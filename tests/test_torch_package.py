@@ -249,6 +249,54 @@ def test_thinning_wrapper_takes_large_and_ragged_frames():
     assert "kSmemLimit = 232448" in src and "__syncthreads_or" in src
 
 
+def test_kernel_g_takes_any_frame():
+    """Kernel G holds no image in shared memory (a band of packed words a
+    block, a fixed tile), runs no fixpoint loop, and its wrapper has no
+    frame limit; its twin of the word algebra cuts bands and strips as the
+    kernel does."""
+    src = (build.CSRC_DIR / "morph.cu").read_text()
+    for word in ("extern __shared__", "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                 "__syncthreads_or", "h * w"):
+        assert word not in src, word
+    assert '#include "packed_words.cuh"' in src
+    assert not hasattr(cuda_morph, "_SMEM_LIMIT")
+    assert "_SMEM_LIMIT" not in inspect.getsource(cuda_morph)
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kRows"]), int(consts["kWords"])) == (
+        cuda_morph._ROWS, cuda_morph._WORDS)
+
+
+def test_kernel_g_parent_stays_outside_the_build():
+    """The kernel G replaced stays beside the tool that holds the two
+    together, outside the package's build, and every text substitution of
+    the tool's variants still finds its line in the shipped source."""
+    parent = (ROOT / "tools" / "morph_parent.cu").read_text()
+    assert "__syncthreads_or" in parent and "extern __shared__" in parent
+    assert "morph_parent.cu" not in build.SOURCES
+    src = (build.CSRC_DIR / "morph.cu").read_text()
+    tool = (ROOT / "tools" / "morph_variants.py").read_text()
+    subs = re.findall(r'\("(constexpr [^"]+;)",', tool)
+    assert subs
+    for old in subs:
+        assert old in src, old
+
+
+def test_kernel_headers_are_part_of_the_library_hash(tmp_path, monkeypatch):
+    """Every header a source includes is hashed, so editing it rebuilds."""
+    included = set()
+    for name in build.SOURCES:
+        included.update(re.findall(r'#include "([^"]+)"',
+                                   (build.CSRC_DIR / name).read_text()))
+    assert included == set(build.HEADERS)
+    for name in build.SOURCES + build.HEADERS:
+        (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build._digest()
+    header = tmp_path / build.HEADERS[0]
+    header.write_text(header.read_text() + "\n")
+    assert build._digest() != before
+
+
 def test_launch_counters_untouched_on_cpu():
     before = dict(build.LAUNCHES)
     m = torch.from_numpy(np.random.default_rng(0).random((1, 16, 16)) < 0.5)
@@ -334,7 +382,8 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
                                     "tools/port_output_digest.py",
                                     "tools/nlm_variants.py",
                                     "tools/match_variants.py",
-                                    "tools/binarize_clahe_variants.py"])
+                                    "tools/binarize_clahe_variants.py",
+                                    "tools/morph_variants.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has

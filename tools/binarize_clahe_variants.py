@@ -133,11 +133,12 @@ A_VARIANTS = {
 }
 
 
-def nvcc_build(name: str, text: str):
-    """Compile ``text`` to a shared library; (CDLL, ptxas lines)."""
+def nvcc_build(name: str, text: str, out: Path = OUT):
+    """Compile ``text`` to a shared library in ``out``; (CDLL, ptxas
+    lines)."""
     stem = "".join(c if c.isalnum() else "_" for c in name)
-    cu, so = OUT / f"{stem}.cu", OUT / f"lib{stem}.so"
-    OUT.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{stem}.cu", out / f"lib{stem}.so"
+    out.mkdir(parents=True, exist_ok=True)
     cu.write_text(text)
     res = subprocess.run(
         [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

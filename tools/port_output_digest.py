@@ -17,6 +17,13 @@ by how much at most (the tensors themselves pass through ``--save`` files
 in a temporary directory). A kernel change that claims bit-equal outputs is
 checked this way, the parent commit unpacked beside the change
 (``git archive``).
+
+``--rate RUNS`` also times, in each checkout's process after its digest
+run, RUNS synchronized runs of the main path on ``make_batch(batch)`` (img/s,
+host clock) and five synchronized calls of the binarize stage on the same
+run's segmented images (the median, ms), and prints them beside the
+digests; they take no part in the comparison. Two ``--compare`` calls in
+one session, the checkouts swapped, time the two in turns.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -42,7 +51,34 @@ def _synthetic():
     return mod
 
 
-def digests(root: Path, batch: int, save: Path | None = None) -> dict:
+def timing(x, segmented, runs: int) -> dict:
+    """img/s of ``runs`` synchronized main-path runs on ``x``, and the
+    median ms of five synchronized binarize-stage calls on ``segmented``."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
+        extract_minutiae, postprocess_minutiae)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        enhance, preprocess_fingerprint)
+
+    def path():
+        res = preprocess_fingerprint(x)
+        postprocess_minutiae(extract_minutiae(res.skeleton), res.skeleton)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    secs = wall(lambda: [path() for _ in range(runs)])
+    stage = statistics.median(
+        wall(lambda: enhance.binarize(segmented)) for _ in range(5))
+    return {"img_s": x.shape[0] * runs / secs, "binarize_ms": stage * 1e3}
+
+
+def digests(root: Path, batch: int, save: Path | None = None,
+            rate: int = 0) -> dict:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("port_output_digest: needs a GPU")
@@ -61,7 +97,8 @@ def digests(root: Path, batch: int, save: Path | None = None) -> dict:
 
     for name, imgs in (("make_batch", syn.make_batch(batch)),
                        ("blob_prints", syn.blob_prints(range(16)))):
-        res = preprocess_fingerprint(torch.from_numpy(imgs).cuda())
+        x = torch.from_numpy(imgs).cuda()
+        res = preprocess_fingerprint(x)
         ms = postprocess_minutiae(extract_minutiae(res.skeleton), res.skeleton)
         torch.cuda.synchronize()
         for field in ("denoised", "binary", "skeleton"):
@@ -70,6 +107,8 @@ def digests(root: Path, batch: int, save: Path | None = None) -> dict:
         for field, value in zip(ms._fields, ms):
             key = f"{name}.minutiae.{field}"
             out[key] = sha(key, value)
+        if rate and name == "make_batch":
+            out["timing"] = timing(x, res.segmented, rate)
     if save is not None:
         torch.save(kept, save)
     return out
@@ -95,25 +134,37 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--save", type=Path,
                     help="with --root: also write the tensors to this file")
+    ap.add_argument("--rate", type=int, default=0, metavar="RUNS",
+                    help="also time RUNS main-path runs and the binarize stage")
     args = ap.parse_args()
     if args.root:
-        print(json.dumps(digests(args.root.resolve(), args.batch, args.save)))
+        print(json.dumps(digests(args.root.resolve(), args.batch, args.save,
+                                 args.rate)))
         return
     if not args.compare:
         ap.error("give --root or --compare")
     import torch
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
     runs, tensors = [], []
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(args.compare):
             res = subprocess.run(
                 [sys.executable, __file__, "--root", str(root), "--batch",
-                 str(args.batch), "--save", f"{tmp}/{i}.pt"],
+                 str(args.batch), "--save", f"{tmp}/{i}.pt", "--rate",
+                 str(args.rate)],
                 capture_output=True, text=True, check=False)
             if res.returncode:
                 raise SystemExit(f"{root}: failed\n{res.stdout}\n{res.stderr}")
             runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
             tensors.append(torch.load(f"{tmp}/{i}.pt"))
+            timed = runs[-1].pop("timing", None)
             print(f"{root}: {runs[-1]}")
+            if timed:
+                print(f"{root}: {args.rate} main-path runs {timed['img_s']:.1f} "
+                      f"img/s, binarize stage {timed['binarize_ms']:.3f} ms "
+                      f"(median of 5) on {runs[-1]['card']}")
     differ = [k for k in runs[0] if runs[0][k] != runs[1].get(k)]
     for k in differ:
         if k in tensors[0] and k in tensors[1]:
