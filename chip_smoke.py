@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multimodal_biometric_fingerprints_palms_tpu_torch/csrc``
-and drives both paths of the port on the card:
+and drives the port's paths on the card:
 
 - enhance + extract: checks kernels A (CLAHE), B (connected components),
   C (thinning), E (non-local means), F (binarize front) and G
@@ -28,9 +28,17 @@ and drives both paths of the port on the card:
   (``tests/fixtures/parity_full_golden.json``) on the repository's 136
   templates with the cascade on and off and holds it to the golden's
   tolerances, and runs enhance -> match on 8 users x 2 sessions of
-  synthetic prints under the production matching configuration.
+  synthetic prints under the production matching configuration;
+- the file pipeline: ``pipeline.run_all(skip_ssl=True,
+  demo_matching=False)`` from files on disk (``tools/polyu_set.py``: 160
+  PolyU-shaped JPEGs of 320x240, a BMP, a colour PNG and a TIFF it must
+  skip), counting each stage's kernel launches (A, B, C, E, F, G in
+  preprocessing, D in matching), holding 4 images against the port on the
+  CPU from the same files, checking every output file, the JSON schema,
+  ``roc.png`` and the EER bounds, and printing each stage's seconds.
 
-Imports nothing of JAX or of the JAX package. Prints the card's name and
+Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
+pandas or matplotlib). Prints the card's name and
 power limit, one JSON line with every kernel's launches, error, times and
 bound (the least time the card could take: bytes over its memory rate or
 operations over its float32 rate, whichever is larger), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
@@ -85,7 +93,8 @@ CHUNK = 512                   # pairs per device chunk (the runner's default)
 RATE_CHUNKS = (512, 4096)     # chunk sizes of the full-pass rate
 H_FULL = 300                  # RANSAC hypotheses of the full pass
 SCREEN_ITERS = 32             # configs/config_matching.yml matching.screen_iters
-# configs/config_matching.yml, hard-coded: the card's machine has no yaml
+# configs/config_matching.yml's values, as constants: the script imports
+# nothing of the checkout before main() has checked that it is one
 PRODUCTION = dict(ransac_iter=300, stop_inlier_ratio=0.15, seed=42,
                   peers=100, num_points=50, max_per_user=2, cascade=True)
 FRR_GATES = dict(dist_thresh=30.0, orient_thresh=math.radians(30.0),
@@ -922,6 +931,206 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
     return d
 
 
+# --- the file pipeline --------------------------------------------------------
+
+# subjects of the PolyU-shaped set (tools/polyu_set.py): x 10 impressions
+FILE_SUBJECTS = 16
+FILE_CMP = 4                  # images run on the card and on the CPU
+REFERENCE_KEYS = {"x", "y", "type", "orientation", "quality", "coherence",
+                  "angular_stability"}
+
+
+def file_pipeline_phase(dev, build, card) -> dict:
+    """``pipeline.run_all(skip_ssl=True, demo_matching=False)`` of the port
+    on the card over ``tools/polyu_set.py``'s files at 16 subjects: 160
+    JPEGs of 320x240, a BMP, a colour PNG and a TIFF (the production matching
+    configuration: cascade on, RANSAC 300), in a temporary working
+    directory. Checks every output file, the catalog's rows, the kernels'
+    launches per stage (each stage's counts set to 0 just before it and read
+    just after), 4 images on the card against the port on the CPU from the
+    same files, the minutiae JSON schema, ``roc.png``, and the EER and mean
+    gap bounds of ``tests/test_end_to_end_eer.py``. Returns the stage
+    launches and seconds."""
+    import os
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch import pipeline
+    from multimodal_biometric_fingerprints_palms_tpu_torch.catalog import (
+        CATALOG_COLUMNS)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
+        runner as frun)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        runner as mrun)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        runner as prun)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.io import (
+        read_image_grayscale)
+
+    launches = {}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            for k in build.LAUNCHES:
+                build.LAUNCHES[k] = 0
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            launches[name] = dict(build.LAUNCHES)
+            return out
+        return run
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        files = load_tool("polyu_set").write(root, FILE_SUBJECTS)
+        t_data = time.perf_counter() - t0
+        # run_all imports each stage's entry point when it reaches it: wrap
+        # them in their modules to count each stage's launches alone
+        stages = [(prun, "run_preprocessing", "preprocessing"),
+                  (frun, "process_directory", "features"),
+                  (mrun, "main", "matching")]
+        saved = [getattr(m, n) for m, n, _ in stages]
+        try:
+            for m, n, label in stages:
+                setattr(m, n, counted(label, getattr(m, n)))
+            os.chdir(root)
+            t0 = time.perf_counter()
+            res = pipeline.run_all(str(root), skip_ssl=True,
+                                   demo_matching=False)
+            t_all = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            for (m, n, _), fn in zip(stages, saved):
+                setattr(m, n, fn)
+
+        readable = sorted(r for r, kind in files.items() if kind != ".tif")
+        pre, feat, mat = (res["preprocessing"], res["features"],
+                          res["matching"])
+        print(f"  {len(files)} files written in {t_data:.2f} s; run_all "
+              f"{t_all:.2f} s: catalog rows {res['catalog_rows']}, "
+              f"preprocessed {pre['num_images']} (reader {pre['reader']}), "
+              f"minutiae {feat['num_images']}, {mat['num_users']} users, "
+              f"{mat['genuine_pairs']} genuine + {mat['impostor_pairs']} "
+              f"impostor pairs")
+        if not (res["catalog_rows"] == pre["num_images"] == feat["num_images"]
+                == len(readable)):
+            fail(f"file pipeline: expected {len(readable)} images at every "
+                 f"stage, got catalog {res['catalog_rows']}, preprocessing "
+                 f"{pre['num_images']}, features {feat['num_images']}")
+        with open(root / "data" / "metadata" / "catalog.csv") as f:
+            lines = f.read().splitlines()
+        if lines[0].split(",") != CATALOG_COLUMNS or len(lines) != len(readable) + 1:
+            fail("file pipeline: catalog header or row count")
+
+        # every output file, and the minutiae JSON schema
+        missing = []
+        for rel in readable:
+            sub, name = rel.rsplit("/", 1)
+            base = Path(name).stem
+            want = [f"processed/enhanced/{sub}/{base}_{k}.jpg"
+                    for k in ("enhanced", "skeleton")]
+            want += [f"processed/debug/{sub}/{base}_{k}.jpg" for k in (
+                "normalized", "denoised", "segmented", "binary")]
+            want += [f"processed/debug/{sub}/mask/{name}",
+                     f"processed/minutiae/{sub}/{base}_minutiae.jpg",
+                     f"processed/minutiae/{sub}/{base}_minutiae.json"]
+            missing += [w for w in want if not (root / w).is_file()]
+        logs = root / "logs"
+        missing += [f"logs/{n}" for n in ("minutiae_stats.csv",
+                                          "genuine_match_stats.csv", "roc.png")
+                    if not (logs / n).is_file()]
+        if missing:
+            fail(f"file pipeline: {len(missing)} outputs missing, e.g. "
+                 f"{missing[:3]}")
+        n_min = []
+        for p in sorted((root / "processed" / "minutiae").rglob("*.json")):
+            recs = json.loads(p.read_text())
+            n_min.append(len(recs))
+            if any(set(r) != REFERENCE_KEYS or r["type"] not in (
+                    "ending", "bifurcation") or not isinstance(r["x"], int)
+                    for r in recs):
+                fail(f"file pipeline: {p.name} breaks the reference schema")
+        roc = read_image_grayscale(logs / "roc.png")
+        print(f"  every output present; minutiae per template min "
+              f"{min(n_min)}, median {int(np.median(n_min))}, max "
+              f"{max(n_min)}; roc.png {roc.shape[1]}x{roc.shape[0]}")
+
+        # launches per stage: one run_preprocessing batch is A x3, B x4 and
+        # C, E, F, G x1; matching launches D only
+        n_batches = -(-pre["num_images"] // 32)
+        per_batch = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
+                     "binarize": 1, "morph": 1}
+        got = {k: launches["preprocessing"][k] for k in per_batch}
+        print(f"  launches: preprocessing {got} ({n_batches} batches); "
+              f"features {({k: launches['features'][k] for k in per_batch})}; "
+              f"matching {({k: launches['matching'][k] for k in per_batch})}")
+        if got != {k: v * n_batches for k, v in per_batch.items()}:
+            fail("file pipeline: preprocessing launch counts")
+        if launches["matching"]["match"] <= 0 or any(
+                launches["matching"][k] for k in per_batch if k != "match"):
+            fail("file pipeline: matching launch counts")
+
+        # card against the CPU port on the same files
+        cmp_dir = root / "cmp" / "sorted_dataset" / "cluster_0"
+        cmp_dir.mkdir(parents=True)
+        picked = readable[:FILE_CMP]
+        for rel in picked:
+            (cmp_dir / Path(rel).name).write_bytes(
+                (root / "sorted_dataset" / rel).read_bytes())
+        os.chdir(root)
+        try:
+            prun.run_preprocessing(root / "cmp" / "sorted_dataset",
+                                   root / "cmp" / "processed", device="cpu")
+            frun.process_directory(root / "cmp" / "processed" / "enhanced",
+                                   root / "cmp" / "processed" / "minutiae",
+                                   device="cpu")
+        finally:
+            os.chdir(cwd)
+        mism = total = 0
+        dcount = []
+        for rel in picked:
+            sub, name = rel.rsplit("/", 1)
+            base = Path(name).stem
+            a = read_image_grayscale(
+                root / f"processed/enhanced/{sub}/{base}_skeleton.jpg") > 127
+            b = read_image_grayscale(
+                root / f"cmp/processed/enhanced/cluster_0/{base}_skeleton.jpg") > 127
+            mism += int((a != b).sum())
+            total += int(b.sum())
+            na = len(json.loads((root / f"processed/minutiae/{sub}/"
+                                 f"{base}_minutiae.json").read_text()))
+            nb = len(json.loads((root / f"cmp/processed/minutiae/cluster_0/"
+                                 f"{base}_minutiae.json").read_text()))
+            dcount.append(abs(na - nb))
+        print(f"  card vs CPU port from the same files, {FILE_CMP} images: "
+              f"skeleton mismatches {mism} of {total} skeleton px; "
+              f"valid-count diffs {dcount}")
+        if mism > MAX_SKEL_MISMATCH * total or max(dcount) > MAX_COUNT_DIFF:
+            fail("file pipeline: card and CPU port disagree beyond the bound")
+
+    g, imp = mat["genuine_scores"], mat["impostor_scores"]
+    gap = float(g.mean() - imp.mean())
+    print(f"  EER {mat['eer']:.4f} (<= 0.13), genuine mean {g.mean():.4f}, "
+          f"impostor mean {imp.mean():.4f}, gap {gap:.4f} (>= 0.3)")
+    if not (np.isfinite(g).all() and np.isfinite(imp).all()):
+        fail("file pipeline: non-finite scores")
+    if mat["eer"] > 0.13 or gap < 0.3:
+        fail("file pipeline: EER or genuine-impostor gap outside the bounds")
+
+    ps, fs = pre["seconds"], feat["seconds"]
+    seconds = {
+        "catalog": res["seconds"]["catalog"],
+        **{f"preprocessing {k}": v for k, v in ps.items()},
+        **{f"features {k}": v for k, v in fs.items()},
+        "matching": res["seconds"]["matching"]}
+    print(f"  stage seconds on {card}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; file path {pre['num_images'] / t_all:.1f} img/s over run_all "
+        f"({t_all:.2f} s); preprocessing reader: {pre['reader']}")
+    return dict(launches=launches, seconds=seconds, run_all_s=t_all,
+                reader=pre["reader"])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1362,6 +1571,11 @@ def main() -> None:
     # 5. the matcher
     d = matcher_phases(dev, build, card, msb, run_path)
 
+    # 6. the file pipeline: images on disk to FRR/FAR/EER
+    print("file pipeline (pipeline.run_all, skip_ssl=True, production "
+          "matching configuration):")
+    fp = file_pipeline_phase(dev, build, card)
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -1409,6 +1623,11 @@ def main() -> None:
                       sauvola_alone_parent_ms=sv_parent_ms)
     kernels[6].update(device_ops_per_call=g_res["device_ops_per_call"],
                       parent_ms=g_res["parent_ms"], device_ms=g_res["device_ms"])
+    # launches in the file pipeline's stage that runs each kernel
+    for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
+                                    "binarize", "morph")):
+        stage = "matching" if counter == "match" else "preprocessing"
+        k["file_pipeline_launches"] = fp["launches"][stage][counter]
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):

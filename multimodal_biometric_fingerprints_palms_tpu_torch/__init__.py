@@ -14,9 +14,12 @@ Ported so far: the enhance + extract chain (``preprocess_fingerprint`` ->
 ``extract_minutiae`` -> ``postprocess_minutiae``) in the configuration the
 JAX package runs with ``use_pallas=False``; the 1:1 RANSAC matcher
 (``matching.runner.match_pair_indices``, with and without the cascade
-screen) on the JAX package's accelerator route, with the minutiae JSON
-reader and writer (``utils.io``) and the FRR/FAR/EER protocol functions
-(``evaluation``).
+screen) on the JAX package's accelerator route; and the file pipeline from
+images on disk to FRR/FAR/EER (``catalog``, ``preprocessing.runner``,
+``features.runner``, ``matching.runner.main``,
+``pipeline.run_all(skip_ssl=True)``) with the port's own image codec, YAML
+reader and CSV writer (``utils.image_codec``, ``config``). Entry points run
+on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

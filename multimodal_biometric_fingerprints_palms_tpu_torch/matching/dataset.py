@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..features.minutiae import MinutiaeSet, from_matrix
+from ..utils.device import resolve_device
 from ..utils.io import load_minutiae_matrix, pad_minutiae
 
 
@@ -39,11 +40,7 @@ def load_dataset(minutiae_base: str | Path, max_per_user: int | None = None,
     """Load every ``*_minutiae.json`` under ``minutiae_base`` onto ``device``
     (default: the card; pass ``"cpu"`` to run there). Raises if the card is
     asked for, by default or by name, and CUDA is not available."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "load_dataset loads onto a CUDA device by default and CUDA is "
-            "not available; pass device='cpu' to run on the CPU")
+    device = resolve_device(device, "load_dataset")
     base = Path(minutiae_base)
     files = sorted(base.rglob("*_minutiae.json"))
 

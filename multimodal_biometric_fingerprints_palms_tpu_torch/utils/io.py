@@ -1,15 +1,19 @@
-"""Minutiae JSON I/O of the port (the JSON half of the JAX package's
-``utils/io.py``), in JSON and numpy only.
+"""Host-side I/O of the port: images and minutiae JSON (the JAX package's
+``utils/io.py``), in numpy, zlib and JSON only.
 
-The schema is the reference's:
+Images are read and written through the port's own codec
+(``utils/image_codec.py``) on every machine: the card's machine has no
+libjpeg, and the port imports neither OpenCV nor PIL. Reading gives what
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives; writing picks the format
+from the suffix (JPEG at quality 95, PNG, BMP), as ``cv2.imwrite`` does.
+
+The minutiae schema is the reference's:
 
     [{"x": int, "y": int, "type": "ending"|"bifurcation", "orientation": float,
       "quality": float, "coherence": float, "angular_stability": float}, ...]
 
 and the (N, 7) matrix layout is [x, y, type (0 ending / 1 bifurcation),
-orientation, quality, coherence, angular_stability]. The image readers stay
-in the JAX package until the file runners are ported: they need OpenCV or
-PIL, which the port does not import.
+orientation, quality, coherence, angular_stability].
 """
 
 from __future__ import annotations
@@ -19,7 +23,35 @@ from pathlib import Path
 
 import numpy as np
 
+from .image_codec import encode_for, read_gray
+
 MINUTIA_TYPES = ("ending", "bifurcation")
+
+
+def read_image_grayscale(path: str | Path) -> np.ndarray:
+    """Read an image as a 2-D uint8 array (``ImageFormatError`` for a
+    format the codec does not read, ``OSError`` for a missing file)."""
+    return read_gray(path)
+
+
+def encode_image(path: str | Path, img: np.ndarray) -> bytes:
+    """The file bytes ``write_image`` writes: a uint8 array as it is; any
+    other dtype scaled by 255 if its maximum is at most 1, clipped to
+    [0, 255] and truncated to uint8 (the JAX package's rule)."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr * 255.0 if arr.max() <= 1.0 + 1e-6 else arr, 0, 255)
+        arr = arr.astype(np.uint8)
+    return encode_for(path, arr)
+
+
+def write_image(path: str | Path, img: np.ndarray) -> None:
+    """Write a uint8 (or float in [0,1]) image; the suffix names the
+    format."""
+    path = Path(path)
+    data = encode_image(path, img)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
 
 
 def minutiae_to_json(xy: np.ndarray, types: np.ndarray, orientation: np.ndarray,

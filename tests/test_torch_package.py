@@ -1,8 +1,12 @@
-"""Package-level checks of the PyTorch/CUDA port: it imports neither JAX nor
-OpenCV, its public signatures and defaults equal the JAX package's, its
-kernel sources exist, and its kernel wrappers never fall back to the plain
-version for a tensor that is not on the CPU."""
+"""Package-level checks of the PyTorch/CUDA port: it imports none of JAX,
+OpenCV, PIL, PyYAML, pandas, matplotlib or the JAX package (the card's
+machine lacks some, and the port carries its own codec, YAML reader and CSV
+writer), its public signatures and defaults equal the JAX package's, its
+kernel sources exist, its kernel wrappers never fall back to the plain
+version for a tensor that is not on the CPU, and its entry points run on
+the card unless the caller asks for the CPU."""
 
+import ast
 import importlib
 import inspect
 import os
@@ -25,6 +29,11 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = "multimodal_biometric_fingerprints_palms_tpu"
 PORT_PKG = "multimodal_biometric_fingerprints_palms_tpu_torch"
+# what neither the port nor the scripts that run it on the card may import
+FORBIDDEN = ("jax", "cv2", "PIL", "yaml", "pandas", "matplotlib", JAX_PKG)
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__init__.py")
 
 # (module, function names) of the slice, under both packages
 SLICE = {
@@ -59,12 +68,32 @@ SLICE = {
                         "match_minutiae_pair", "match_pairs_batch",
                         "screen_promote_batch"],
     "matching.dataset": ["load_dataset", "genuine_pairs", "impostor_pairs"],
-    "matching.runner": ["match_pair_indices"],
-    "utils.io": ["minutiae_to_json", "save_minutiae_json",
-                 "load_minutiae_matrix", "pad_minutiae"],
+    "matching.runner": ["match_pair_indices", "_log_pair_scores",
+                        "_write_genuine_stats", "main"],
+    "utils.io": ["read_image_grayscale", "write_image", "minutiae_to_json",
+                 "save_minutiae_json", "load_minutiae_matrix", "pad_minutiae"],
+    "utils.logging": ["console_step", "get_file_logger"],
+    "utils.padding": ["pad_to_multiple", "canonical_shape", "pad_image_batch"],
+    "utils.native_loader": ["native_available", "batch_load_u8"],
+    "config.loader": ["load_yaml_config", "load_fingerprint_config",
+                      "load_classifier_config", "load_matching_config",
+                      "load_segmentation_config"],
+    "catalog.parse": ["parse_filename", "user_id_from_filename"],
+    "catalog.catalog": ["scan_cluster", "scan_dataset", "main"],
+    "catalog.verify": ["check_id_consistency"],
     "evaluation.metrics": ["evaluate_frr_across_thresholds",
-                           "evaluate_far_across_thresholds", "compute_eer"],
+                           "evaluate_far_across_thresholds", "compute_eer",
+                           "report_scores", "compute_minutiae_statistics"],
+    "evaluation.roc": ["plot_roc"],
+    "preprocessing.runner": ["_find_images", "_canonical_shape",
+                             "run_preprocessing", "main"],
+    "features.runner": ["_overlay", "process_directory", "main"],
+    "pipeline": ["run_all"],
 }
+# Not listed: ``catalog.save_catalog`` takes the records ``scan_dataset``
+# returns (a list of dicts) where the JAX package's takes a DataFrame;
+# ``utils.profiling``'s ``stage_timer`` defaults to its own module's logger
+# and ``device_trace`` writes a torch.profiler trace to its own directory.
 # Functions the port keeps in another module: the matcher's batch entry
 # points sit beside kernel D's wrapper.
 PORT_MODULE = {
@@ -95,7 +124,7 @@ KERNEL_ENTRY = {
 # The port keeps no use_pallas switch (the kernels are chosen by the
 # tensor's device) and no anchors=False screen ablation switch.
 DROPPED = {"use_pallas", "anchors"}
-# Parameters only the port has: the device a dataset is loaded onto.
+# Parameters only the port has: the device an entry point runs on, last.
 ADDED = {"device"}
 
 
@@ -105,29 +134,85 @@ def _params(fn, drop=()):
             if p.name not in drop]
 
 
-def test_port_imports_neither_jax_nor_cv2():
-    code = ("import sys; import {0}.preprocessing, {0}.features, {0}.ops; "
-            "import {0}.kernels.build; "
-            "bad = [m for m in ('jax', 'cv2') if m in sys.modules]; "
-            "sys.exit(1 if bad else 0)").format(PORT_PKG)
+def _imports_in_a_fresh_process(modules) -> list:
+    """The FORBIDDEN packages in ``sys.modules`` after importing
+    ``modules`` in a new interpreter."""
+    code = ("import importlib, sys\n"
+            f"for m in {list(modules)!r}: importlib.import_module(m)\n"
+            f"print([m for m in {FORBIDDEN!r} if m in sys.modules])")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    return ast.literal_eval(res.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_neither_jax_nor_cv2():
+    """Every module of the port, imported together: none of FORBIDDEN."""
+    assert _imports_in_a_fresh_process(PORT_MODULES) == []
 
 
 def test_matcher_imports_neither_jax_cv2_pil_nor_the_jax_package():
-    """The matcher runs on a machine without JAX, OpenCV or PIL, and the
-    script that drives it there imports nothing of the JAX package."""
-    code = ("import sys; import {0}.matching.runner, {0}.utils.io, "
-            "{0}.evaluation; "
-            "bad = [m for m in ('jax', 'cv2', 'PIL', '{1}') "
-            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
-            ).format(PORT_PKG, JAX_PKG)
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
+    """The matcher and the file pipeline run on a machine without JAX,
+    matplotlib or the JAX package."""
+    assert _imports_in_a_fresh_process(
+        [f"{PORT_PKG}.matching.runner", f"{PORT_PKG}.pipeline",
+         f"{PORT_PKG}.utils.io", f"{PORT_PKG}.evaluation"]) == []
+
+
+def _imported_names(path: Path) -> set:
+    """Top-level package names a source imports anywhere in it (function
+    bodies included: those imports run only when called)."""
+    import ast
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_sources_import_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not _imported_names(path) & set(FORBIDDEN), module
+
+
+RUNNER_SOURCES = ["preprocessing/runner.py", "features/runner.py",
+                  "matching/runner.py", "pipeline.py", "utils/transfer.py"]
+
+
+@pytest.mark.parametrize("module", RUNNER_SOURCES)
+def test_runners_divide_no_tensor_by_a_python_scalar(module):
+    """On CUDA, PyTorch turns a division by the Python scalar 255.0 into a
+    multiplication by its reciprocal, one ulp off: the runners scale uint8
+    to [0, 1] through ``bin_to_unit`` (a tensor divisor)."""
+    src = (ROOT / PORT_PKG / module).read_text()
+    for form in ("/ 255.0", "/ 255)", "/255", "/ 255\n"):
+        assert form not in src, form
+
+
+@pytest.mark.parametrize("entry", ["preprocessing.runner.run_preprocessing",
+                                   "features.runner.process_directory",
+                                   "matching.runner.main",
+                                   "pipeline.run_all"])
+def test_runners_default_to_the_card_and_raise_without_one(entry, tmp_path,
+                                                          monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU."""
+    module, name = entry.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"{PORT_PKG}.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default is None
+    assert list(inspect.signature(fn).parameters)[-1] == "device"
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)
+    kwargs = {"skip_ssl": True} if name == "run_all" else {}
+    first = [str(tmp_path)] if name != "main" else []
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(*first, device=device, **kwargs)
+    assert not any(tmp_path.iterdir())        # raised before any work
 
 
 @pytest.mark.parametrize("module", sorted(SLICE))
@@ -383,20 +468,14 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
                                     "tools/nlm_variants.py",
                                     "tools/match_variants.py",
                                     "tools/binarize_clahe_variants.py",
-                                    "tools/morph_variants.py"])
+                                    "tools/morph_variants.py",
+                                    "tools/polyu_set.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has
     its own copy of the synthetic inputs (``utils/synthetic.py``)."""
-    import ast
-    tree = ast.parse((ROOT / script).read_text())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names.add(node.module.split(".")[0])
-    assert not names & {"jax", "bench", JAX_PKG, "cv2"}, names
+    names = _imported_names(ROOT / script)
+    assert not names & {"bench", *FORBIDDEN}, names
 
 
 def test_synthetic_module_needs_numpy_only():
