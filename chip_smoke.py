@@ -35,7 +35,16 @@ and drives the port's paths on the card:
   skip), counting each stage's kernel launches (A, B, C, E, F, G in
   preprocessing, D in matching), holding 4 images against the port on the
   CPU from the same files, checking every output file, the JSON schema,
-  ``roc.png`` and the EER bounds, and printing each stage's seconds.
+  ``roc.png`` and the EER bounds, and printing each stage's seconds;
+- the gallery (``parallel/``): ``all_pairs_unique`` over 1,480 synthetic
+  templates (``utils.synthetic.users_gallery``, 148 users x 10) at RANSAC
+  300 with the cascade off, on, and on without its anchors (seconds,
+  pairs/s, promoted share, kernel D's launches, peak device memory; cascade
+  scores held to the full pass's, genuine above impostor), kernel D against
+  its twin on a screen tile's shape, 64 templates on the card against the
+  CPU, the screen's recall at ``min_inliers=6`` on 12-minutia templates,
+  and ``identify`` / ``identify_batch`` (64 probes) against the gallery
+  padded to 1,536 (ms/probe, top-1 user, each row equal to ``identify``).
 
 Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
 pandas or matplotlib). Prints the card's name and
@@ -1131,6 +1140,282 @@ def file_pipeline_phase(dev, build, card) -> dict:
                 reader=pre["reader"])
 
 
+# --- the gallery: all-pairs scoring and 1:N identification --------------------
+
+# the README's all-pairs protocol, PolyU DBII's shape: 148 users x 10
+# samples (utils.synthetic.users_gallery, a copy of the matcher benchmark's)
+GALLERY_USERS, GALLERY_SAMPLES = 148, 10
+GALLERY_CHUNK = 2048          # full-pass pairs a call (all_pairs_unique's)
+GALLERY_BLOCK = 64            # the blocked screen's tile side
+GALLERY_WARMUP = 256          # templates of the warm-up sweep (bench_allpairs)
+GALLERY_CMP = 64              # templates matched on the card and on the CPU
+CMP_ITERS, CMP_SCREEN_ITERS = 32, 8       # their full pass and screen
+IDENT_CHUNK = 512
+IDENT_PROBES = 64
+GALLERY_SCORE_ATOL = 1e-6     # cascade vs full pass, card vs CPU
+
+
+def gallery_phase(dev, build, card, mesh) -> dict:
+    """The port's gallery (``parallel/``) on ``mesh``: the all-pairs sweep
+    of 1,480 templates at the production budget (RANSAC 300) with the
+    cascade off, on, and on without its anchors; kernel D against its twin
+    on a screen tile's shape; 64 templates on the mesh against the CPU; the
+    screen's recall at ``min_inliers=6`` on 12-minutia templates; and
+    ``identify`` / ``identify_batch`` against the gallery padded to 1,536.
+    The galleries are built on the CPU, so the mesh alone puts the sweeps on
+    its device. Each sweep's kernel launches are counted alone. Returns
+    kernel D's launches in the cascade sweep."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        MinutiaeSet, minutiae_from_numpy)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        cuda_match as cm)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams, _pair_stats, sample_hypotheses)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel import (
+        gallery as G)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
+        create_mesh)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        users_gallery)
+
+    t_phase = time.perf_counter()
+    n = GALLERY_USERS * GALLERY_SAMPLES
+    labels = np.repeat(np.arange(GALLERY_USERS), GALLERY_SAMPLES)
+    pairs = G.unique_pairs(n)
+    same = labels[pairs[:, 0]] == labels[pairs[:, 1]]
+    nb = -(-n // GALLERY_BLOCK)
+    tiles = nb * (nb + 1) // 2
+    chunks = lambda k: -(-k // GALLERY_CHUNK)
+    gib = lambda b: b / 2 ** 30
+    print(f"  {n} templates ({GALLERY_USERS} users x {GALLERY_SAMPLES}), "
+          f"{len(pairs)} unique pairs, {int(same.sum())} genuine; mesh "
+          f"{mesh.devices}; screen: {tiles} tiles of {GALLERY_BLOCK ** 2} pairs")
+
+    def screen_params(params, iters):
+        """all_pairs_unique's screen parameters for a full pass ``params``."""
+        return params._replace(ransac_iter=iters, full_iters=params.ransac_iter,
+                               min_inliers=max(3, params.min_inliers - 2))
+
+    def promoted_slots(gal, params, anchors):
+        """(P,) bool over ``pairs``: the blocked screen's promote bits, laid
+        out tile by tile on the (N, N) grid and read at each unique pair."""
+        bp, mask = G.shard_blocks_screen(
+            gal, mesh, screen_params(params, SCREEN_ITERS),
+            block=GALLERY_BLOCK, anchors=anchors)
+        side = nb * GALLERY_BLOCK
+        grid = np.zeros((side, side), bool)
+        tile = lambda i: slice(i * GALLERY_BLOCK, (i + 1) * GALLERY_BLOCK)
+        for (bi, bj), bits in zip(bp, mask):
+            grid[tile(bi), tile(bj)] = bits.reshape(GALLERY_BLOCK, GALLERY_BLOCK)
+        return grid[pairs[:, 0], pairs[:, 1]]
+
+    def sweep(name, gal, params, cascade, anchors=True):
+        """all_pairs_unique on ``gal``, counted, timed and checked; the
+        screen's promote bits are taken after the timed call."""
+        for key in build.LAUNCHES:
+            build.LAUNCHES[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        scores, secs = wall_s(lambda: G.all_pairs_unique(
+            gal, mesh, params, chunk=GALLERY_CHUNK, cascade=cascade,
+            screen_iters=SCREEN_ITERS, anchors=anchors))
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        promoted = promoted_slots(gal, params, anchors) if cascade else None
+        want = (tiles + chunks(int(promoted.sum())) if cascade
+                else chunks(len(pairs)))
+        g_mean, i_mean = scores[same].mean(), scores[~same].mean()
+        share = (f"promoted {int(promoted.sum())} ({promoted.mean():.4%}); "
+                 if cascade else "")
+        print(f"  {name}: {secs:.3f} s, {len(pairs) / secs:.1f} pairs/s; "
+              f"{share}kernel D launches {launches['match']} (expected "
+              f"{want}); peak device memory {gib(peak):.3f} GiB; genuine "
+              f"mean {g_mean:.4f}, impostor mean {i_mean:.6f}")
+        if launches != {**dict.fromkeys(build.LAUNCHES, 0), "match": want}:
+            fail(f"gallery {name}: launch counts {launches}, expected {want} "
+                 "kernel-D calls and nothing else")
+        if scores.shape != (len(pairs),) or not np.isfinite(scores).all():
+            fail(f"gallery {name}: scores' shape or values")
+        if cascade and (scores[~promoted] != 0).any():
+            fail(f"gallery {name}: a pair the screen dropped scored > 0")
+        if not g_mean > i_mean + 0.2:
+            fail(f"gallery {name}: genuine mean {g_mean:.4f} is not above the "
+                 f"impostor mean {i_mean:.4f} by 0.2")
+        return dict(scores=scores, seconds=secs, launches=launches["match"],
+                    peak_bytes=peak, promoted=promoted)
+
+    def agree(name, cascaded, full):
+        """Every cascade score is 0 or the full pass's score of that pair."""
+        kept = cascaded != 0.0
+        d = np.abs(cascaded[kept] - full[kept])
+        worst = float(d.max()) if d.size else 0.0
+        print(f"  {name}: {int(kept.sum())} pairs scored > 0, "
+              f"{int((d != 0).sum())} of them not bit-equal to the full pass "
+              f"(max |d| {worst:.3g})")
+        if worst > GALLERY_SCORE_ATOL:
+            fail(f"gallery {name}: cascade scores differ from the full pass")
+
+    # 1. the all-pairs sweep, three modes, each after a warm-up sweep of the
+    # first 256 templates. The gallery lies on the CPU: the mesh moves it.
+    g40 = minutiae_from_numpy(users_gallery(GALLERY_USERS, GALLERY_SAMPLES,
+                                            n_min=40, seed=0))
+    warm = MinutiaeSet(*(x[:GALLERY_WARMUP] for x in g40))
+    p = MatchParams(ransac_iter=H_FULL)
+    print(f"all-pairs sweep, users_gallery({GALLERY_USERS}, "
+          f"{GALLERY_SAMPLES}, n_min=40), RANSAC {H_FULL}, chunk "
+          f"{GALLERY_CHUNK}, on {card}:")
+    runs = {}
+    for name, cascade, anchors in (("cascade off", False, True),
+                                   ("cascade on", True, True),
+                                   ("cascade on, anchors off", True, False)):
+        G.all_pairs_unique(warm, mesh, p, chunk=GALLERY_CHUNK,
+                           cascade=cascade, screen_iters=SCREEN_ITERS,
+                           anchors=anchors)
+        runs[name] = sweep(name, g40, p, cascade, anchors)
+    for name in ("cascade on", "cascade on, anchors off"):
+        agree(name, runs[name]["scores"], runs["cascade off"]["scores"])
+
+    # 2. kernel D against its twin on the screen's first tile, block pair
+    # (0, 0): 4,096 pairs (eight 512-pair slices, one a row of A's 8) of
+    # 6.4 users, at the screen's parameters. The hypotheses' uniforms are
+    # the same for every pair, so one user's pairs tend to hit or miss
+    # together: a slice of one user can hold no score > 0 at all.
+    screen_p = screen_params(p, SCREEN_ITERS)
+    gd = G.shard_gallery(g40, mesh)
+    k = torch.arange(GALLERY_BLOCK ** 2, device=dev)
+    a = G.take_templates(gd, k // GALLERY_BLOCK)
+    b = G.take_templates(gd, k % GALLERY_BLOCK)
+    wa, wb, _, _, possible, _ = _pair_stats(a, b)
+    args = (a, b, wa, wb, *sample_hypotheses(a, b, wa, wb, screen_p),
+            possible, screen_p)
+    sk, ck = cm.hypothesis_scores_cuda(*args)
+    sp, cp = cm.hypothesis_scores_plain(*args)
+    bad, err = int((ck != cp).sum()), float((sk - sp).abs().max())
+    slices = (sk.reshape(-1, CHUNK, SCREEN_ITERS) > 0).flatten(1).any(dim=1)
+    print(f"kernel D on the screen's tile (0, 0) (P={GALLERY_BLOCK ** 2}, "
+          f"H={SCREEN_ITERS}): count mismatches {bad} / {ck.numel()}, "
+          f"max|ds| {err:.3g}; scores > 0 {int((sk > 0).sum())}, in "
+          f"{int(slices.sum())} of its {len(slices)} 512-pair slices")
+    if bad or err > D_ATOL or int((sk > 0).sum()) == 0:
+        fail("kernel D differs from its twin on a screen tile (or no score > 0)")
+
+    # 3. the first 64 templates on the mesh and on the CPU, cascade on: the
+    # screen's mask and the full pass's scores, one CPU gallery for both
+    cpu = create_mesh(device="cpu")
+    small = MinutiaeSet(*(x[:GALLERY_CMP] for x in g40))
+    p32 = MatchParams(ransac_iter=CMP_ITERS)
+    got = {}
+    for where, m in (("card", mesh), ("CPU", cpu)):
+        s, secs = wall_s(lambda: G.all_pairs_unique(
+            small, m, p32, chunk=GALLERY_CHUNK, cascade=True,
+            screen_iters=CMP_SCREEN_ITERS))
+        _, bits = G.shard_blocks_screen(
+            small, m, screen_params(p32, CMP_SCREEN_ITERS),
+            block=GALLERY_BLOCK)
+        got[where] = (s, bits, secs)
+    (s_card, m_card, t_card), (s_cpu, m_cpu, t_cpu) = got["card"], got["CPU"]
+    bad_mask = int((m_card != m_cpu).sum())
+    err = float(np.abs(s_card - s_cpu).max())
+    print(f"{GALLERY_CMP} templates, RANSAC {CMP_ITERS} with the cascade "
+          f"(screen {CMP_SCREEN_ITERS}), card vs CPU: mask mismatches {bad_mask} / "
+          f"{m_card.size} ({int(m_card.sum())} promoted), max|ds| {err:.3g} "
+          f"over {len(s_card)} pairs ({int((s_card > 0).sum())} > 0); "
+          f"{t_card:.3f} s on the card, {t_cpu:.3f} s on the CPU")
+    if bad_mask or err > GALLERY_SCORE_ATOL:
+        fail("gallery: the card and the CPU disagree")
+
+    # 4. the screen's recall at the production budget (VERDICT weak #6):
+    # 12-minutia templates, min_inliers 6
+    g12 = minutiae_from_numpy(users_gallery(GALLERY_USERS, GALLERY_SAMPLES,
+                                            n_min=12, seed=0))
+    p6 = MatchParams(ransac_iter=H_FULL, min_inliers=6)
+    print(f"screen recall, users_gallery({GALLERY_USERS}, {GALLERY_SAMPLES}, "
+          f"n_min=12), RANSAC {H_FULL}, min_inliers 6:")
+    on = sweep("cascade on", g12, p6, True)
+    off = sweep("cascade off", g12, p6, False)
+    agree("cascade on", on["scores"], off["scores"])
+    recall = {}
+    for kind, sel in (("genuine", same), ("impostor", ~same)):
+        row = dict(pairs=int(sel.sum()),
+                   promoted=int(on["promoted"][sel].sum()),
+                   scored_cascade=int((on["scores"][sel] > 0).sum()),
+                   scored_full=int((off["scores"][sel] > 0).sum()),
+                   lost=int(((off["scores"] > 0) & ~on["promoted"])[sel].sum()))
+        recall[kind] = row
+        print(f"  {kind}: {row['pairs']} pairs, promoted {row['promoted']}, "
+              f"score > 0 with the cascade {row['scored_cascade']}, without "
+              f"{row['scored_full']}, > 0 without it but dropped by the "
+              f"screen {row['lost']}")
+
+    # 5. identification against the gallery padded to a multiple of 512,
+    # placed on the mesh once
+    gp = G.pad_gallery(gd, IDENT_CHUNK)
+    n_gp = gp.valid.shape[0]
+    print(f"identification, {n_gp} templates (padded), chunk {IDENT_CHUNK}, "
+          f"RANSAC {H_FULL}:")
+    probe = MinutiaeSet(*(x[3] for x in gd))
+    G.identify(probe, gp, mesh, p, chunk=IDENT_CHUNK)
+    reps = 3
+    torch.cuda.reset_peak_memory_stats()
+    for key in build.LAUNCHES:
+        build.LAUNCHES[key] = 0
+    _, secs = wall_s(lambda: [G.identify(probe, gp, mesh, p, chunk=IDENT_CHUNK)
+                              for _ in range(reps)])
+    one_ms = secs / reps * 1e3
+    one_launches = build.LAUNCHES["match"] // reps
+    one_peak = torch.cuda.max_memory_allocated()
+    probes = G.take_templates(gd, torch.arange(IDENT_PROBES, device=dev))
+    batch = G.identify_batch(probes, gp, mesh, p, chunk=IDENT_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    for key in build.LAUNCHES:
+        build.LAUNCHES[key] = 0
+    _, secs = wall_s(lambda: G.identify_batch(probes, gp, mesh, p,
+                                              chunk=IDENT_CHUNK))
+    batch_ms = secs / IDENT_PROBES * 1e3
+    batch_launches = build.LAUNCHES["match"]
+    batch_peak = torch.cuda.max_memory_allocated()
+    per_call = max(1, G._PAIR_BATCH // IDENT_CHUNK)
+    want_one = n_gp // IDENT_CHUNK
+    want_batch = want_one * -(-IDENT_PROBES // per_call)
+    print(f"  identify: {one_ms:.3f} ms/probe over {reps} synchronized calls, "
+          f"kernel D launches {one_launches} a probe (expected {want_one}), "
+          f"peak device memory {gib(one_peak):.3f} GiB")
+    print(f"  identify_batch, {IDENT_PROBES} probes: {batch_ms:.3f} ms/probe "
+          f"({secs:.3f} s a call), kernel D launches {batch_launches} "
+          f"(expected {want_batch}), peak device memory "
+          f"{gib(batch_peak):.3f} GiB")
+    if (one_launches, batch_launches) != (want_one, want_batch):
+        fail("identification: kernel D launch counts")
+    if batch.shape != (IDENT_PROBES, n_gp) or not torch.isfinite(batch).all():
+        fail("identify_batch: shape or values")
+    others = batch.clone()
+    rows = torch.arange(IDENT_PROBES, device=dev)
+    others[rows, rows] = -1.0                   # the probe's own template
+    top_self = batch.argmax(dim=1).cpu().numpy()
+    top = others.argmax(dim=1).cpu().numpy()
+    right = int((labels[top] == labels[:IDENT_PROBES]).sum())
+    print(f"  top-1 user right for {right} of {IDENT_PROBES} probes with "
+          f"each probe's own template left out (its own template ranks "
+          f"first for {int((top_self == np.arange(IDENT_PROBES)).sum())})")
+    if right != IDENT_PROBES:
+        fail("identify_batch: a probe's top-1 user is wrong")
+    for i in (0, 1, IDENT_PROBES - 1):
+        row = G.identify(MinutiaeSet(*(x[i] for x in gd)), gp, mesh, p,
+                         chunk=IDENT_CHUNK)
+        if not torch.equal(row, batch[i]):
+            fail(f"identify(probe {i}) differs from row {i} of identify_batch "
+                 f"(max|d| {float((row - batch[i]).abs().max()):.3g})")
+    print(f"  identify(probe i) equals row i of identify_batch for i = 0, 1, "
+          f"{IDENT_PROBES - 1}")
+    t_phase = time.perf_counter() - t_phase
+    print(f"  gallery phase {t_phase:.2f} s on {card}")
+    return dict(launches=runs["cascade on"]["launches"], seconds=t_phase,
+                sweeps={k: v["seconds"] for k, v in runs.items()},
+                recall=recall, identify_ms=one_ms,
+                identify_batch_ms=batch_ms)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1576,6 +1861,12 @@ def main() -> None:
           "matching configuration):")
     fp = file_pipeline_phase(dev, build, card)
 
+    # 7. the gallery: all-pairs scoring and 1:N identification
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
+        create_mesh)
+    print("gallery (parallel/: all_pairs_unique, identify, identify_batch):")
+    gal = gallery_phase(dev, build, card, create_mesh())
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -1628,6 +1919,8 @@ def main() -> None:
                                     "binarize", "morph")):
         stage = "matching" if counter == "match" else "preprocessing"
         k["file_pipeline_launches"] = fp["launches"][stage][counter]
+    # kernel D's launches in the gallery's all-pairs sweep with the cascade
+    kernels[3]["gallery_launches"] = gal["launches"]
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -39,8 +39,9 @@ from .ransac import (MatchParams, MatchResult, _cos_sin, _finish_match, _fma,
                      _NN_Q, _NN_SAT, _pair_stats, _take, anchor_promote,
                      sample_hypotheses)
 
-# Hypotheses per step of the plain twin: the fma emulation's float64
-# (P, 25, K, K) temporaries are 0.42 GB each at P=512, K=64.
+# Pairs and hypotheses per step of the plain twin: the fma emulation's
+# float64 (512, 25, K, K) temporaries are 0.42 GB each at K=64.
+_PAIR_CHUNK = 512
 _HYP_CHUNK = 25
 _MAX_K = 128           # kernel D: 7 index bits under the quantized distance
 _HYP_BLOCK = 32        # kernel D: hypotheses per block, grid (P, ceil(H/32))
@@ -68,8 +69,19 @@ def hypothesis_scores_plain(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
                             has_cand, possible, p: MatchParams):
     """Plain PyTorch twin of kernel D. theta (P, H), t (P, H, 2), has_cand
     (P, H), possible (P,). Returns scores (P, H) float32 and counts (P, H)
-    int32. Hypotheses go ``_HYP_CHUNK`` at a time, which bounds the
-    (P, chunk, K, K) temporaries."""
+    int32. Pairs go ``_PAIR_CHUNK`` and hypotheses ``_HYP_CHUNK`` at a
+    time, which bounds the (pairs, hypotheses, K, K) temporaries whatever
+    P is; every pair's result is its own."""
+    pnum = theta.shape[0]
+    if pnum > _PAIR_CHUNK:
+        parts = [hypothesis_scores_plain(
+            MinutiaeSet(*(x[s:s + _PAIR_CHUNK] for x in a)),
+            MinutiaeSet(*(x[s:s + _PAIR_CHUNK] for x in b)),
+            *(x[s:s + _PAIR_CHUNK] for x in (wa, wb, theta, t, has_cand,
+                                             possible)), p)
+            for s in range(0, pnum, _PAIR_CHUNK)]
+        return (torch.cat([s for s, _ in parts]),
+                torch.cat([c for _, c in parts]))
     fa, fb = _features(a, b, wa, wb)
     k = fa.shape[-1]
     dist2, sigma_d2, sigma_o2 = _gate_constants(p)
@@ -207,13 +219,17 @@ def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
     return hit & ~reject
 
 
-def screen_promote_batch(a: MinutiaeSet, b: MinutiaeSet,
-                         p: MatchParams) -> torch.Tensor:
+def screen_promote_batch(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
+                         anchors: bool = True) -> torch.Tensor:
     """Cascade-screen promote bits for (P,) pairs: the sampled screen
     (``screen_pairs_batch_kernel``) OR-ed with ``ransac.anchor_promote``.
+    The one screen every cascade call site shares (pair-index matching and
+    the gallery's pair-list and blocked screens), so their promotion sets
+    stay identical. ``anchors=False`` is the ablation switch that measures
+    the sampled screen alone.
 
     This is the JAX package's accelerator rule. Its CPU route
     (``use_pallas=False``) screens with the full matcher instead; the port
-    has the one rule on every device, and no ``anchors=False`` ablation
-    switch."""
-    return screen_pairs_batch_kernel(a, b, p) | anchor_promote(a, b, p)
+    has the one rule on every device."""
+    base = screen_pairs_batch_kernel(a, b, p)
+    return base | anchor_promote(a, b, p) if anchors else base

@@ -73,6 +73,23 @@ def _cos_sin(theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.cos(th).to(torch.float32), torch.sin(th).to(torch.float32)
 
 
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 atan2 rounded from float64, as ``_cos_sin``. PyTorch's
+    float32 atan2 (and ``**``) on the CPU also differs by an ulp between
+    its vectorized loop and its scalar tail, so on (P,) tensors a pair's
+    result would depend on the size of the batch it is matched in."""
+    return torch.atan2(y.to(torch.float64),
+                       x.to(torch.float64)).to(torch.float32)
+
+
+def _sum64(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """float64 sum of float32 terms. The card and the CPU add in different
+    orders; in float64 the order moves a sum of <= K float32 terms far below
+    a float32 ulp, so what the finish derives from it (centroids, the
+    refined angle, the final score) is one result on both."""
+    return x.to(torch.float64).sum(dim=dim)
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c rounded once, as a fused multiply-add.
 
@@ -229,10 +246,11 @@ def sample_hypotheses(a: MinutiaeSet, b: MinutiaeSet, wa, wb,
     return theta, t, has_cand.to(torch.float32)
 
 
-def _masked_mean(x, m, dim=None):
-    num = torch.where(m, x, 0.0).sum(dim=dim)
-    den = torch.clamp(m.to(x.dtype).expand_as(x).sum(dim=dim), min=1.0)
-    return num / den
+def _masked_mean(x, m, dim):
+    """float32 mean of ``x`` where ``m``, summed in float64 (``_sum64``)."""
+    num = _sum64(torch.where(m, x, 0.0), dim)
+    den = torch.clamp(m.expand_as(x).sum(dim=dim), min=1)
+    return (num / den).to(torch.float32)
 
 
 def _spatial_std(ms: MinutiaeSet) -> torch.Tensor:
@@ -250,7 +268,7 @@ def _pair_stats(a: MinutiaeSet, b: MinutiaeSet):
     wb = compute_descriptor_weights(b)
     na = a.valid.sum(dim=-1, dtype=torch.int32)
     nb = b.valid.sum(dim=-1, dtype=torch.int32)
-    possible = torch.minimum(wa.sum(dim=-1), wb.sum(dim=-1))
+    possible = torch.minimum(_sum64(wa, -1), _sum64(wb, -1)).to(torch.float32)
     dstd = _spatial_std(a) - _spatial_std(b)
     reject = ((na < 8) | (nb < 8)
               | (torch.sqrt((dstd * dstd).sum(dim=-1)) > 35.0))
@@ -316,11 +334,11 @@ def _finish_match(a: MinutiaeSet, b: MinutiaeSet, wa, wb, possible, na, nb,
     cb = _masked_mean(pb, m, dim=-2)
     A = (pa - ca[:, None]) * m.to(torch.float32)
     B = (pb - cb[:, None]) * m.to(torch.float32)
-    h00 = (A[..., 0] * B[..., 0]).sum(dim=-1)
-    h01 = (A[..., 0] * B[..., 1]).sum(dim=-1)
-    h10 = (A[..., 1] * B[..., 0]).sum(dim=-1)
-    h11 = (A[..., 1] * B[..., 1]).sum(dim=-1)
-    theta_r = torch.atan2(h01 - h10, h00 + h11)
+    h00 = _sum64(A[..., 0] * B[..., 0], -1)
+    h01 = _sum64(A[..., 0] * B[..., 1], -1)
+    h10 = _sum64(A[..., 1] * B[..., 0], -1)
+    h11 = _sum64(A[..., 1] * B[..., 1], -1)
+    theta_r = _atan2(h01 - h10, h00 + h11)
     t_r = cb - _apply_rigid(ca, theta_r, 0.0)
 
     # Re-match with the refined transform.
@@ -357,8 +375,8 @@ def _finish_match(a: MinutiaeSet, b: MinutiaeSet, wa, wb, possible, na, nb,
     scores_f = torch.where(inl_f, scores_r, 0.0)
 
     n_f = inl_f.sum(dim=-1, dtype=torch.int32)
-    final_score = torch.clamp(
-        (scores_f.sum(dim=-1) / (possible + 1e-6)) ** 0.25, 0.0, 1.0)
+    raw = _sum64(scores_f, -1) / (possible.to(torch.float64) + 1e-6)
+    final_score = torch.clamp((raw ** 0.25).to(torch.float32), 0.0, 1.0)
     inlier_ratio = n_f.to(torch.float32) / torch.clamp(
         torch.minimum(na, nb).to(torch.float32), min=1.0)
     return MatchResult(final_score=final_score, inlier_ratio=inlier_ratio,

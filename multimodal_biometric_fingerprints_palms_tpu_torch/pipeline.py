@@ -40,7 +40,7 @@ def run_all(dataset_dir: str = "dataset",
     if not skip_ssl:
         raise NotImplementedError(
             "the SSL branch of run_all (skip_ssl=False) is not ported yet: "
-            "ROADMAP.md queue 1, item 6 (models and training); pass "
+            "ROADMAP.md queue 1, items 3 and 4 (models and training); pass "
             "skip_ssl=True to start from an existing sorted_dataset")
     del classifier_config, train          # they configure the SSL branch
     device = resolve_device(device, "run_all")

@@ -146,7 +146,7 @@ def preprocess_fingerprint(img: torch.Tensor,
     """
     if gabor:
         raise NotImplementedError(
-            "gabor=True is not ported yet: ROADMAP.md queue 1, item 6 "
+            "gabor=True is not ported yet: ROADMAP.md queue 1, item 1 "
             "(ops/gabor.py)")
     del gabor_params
     exact_float32()

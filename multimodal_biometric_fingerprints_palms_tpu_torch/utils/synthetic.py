@@ -5,8 +5,9 @@ JAX package's benchmark input: concentric-ridge prints at PolyU size.
 ``blob_prints`` is a copy of ``tests/test_end_to_end_eer.py``'s ``_print``:
 the same ridges with square blobs punched in, which leave >= 8 minutiae
 after quality filtering (``make_batch``'s prints keep only 1-8, in the JAX
-package and in the port alike). ``tests/test_torch_synthetic.py`` holds both
-equal to their originals.
+package and in the port alike). ``users_gallery`` is a copy of the matcher
+benchmark's template gallery (``benchmarks/bench_matching.py``).
+``tests/test_torch_synthetic.py`` holds all three equal to their originals.
 """
 
 from __future__ import annotations
@@ -55,6 +56,38 @@ def blob_prints(seeds, phases=None, h: int = 320, w: int = 256) -> np.ndarray:
         img = np.clip(img + g.normal(0, 0.02, (h, w)), 0, 1) * 255
         out[i] = img.astype(np.uint8).astype(np.float32) / 255.0
     return out
+
+
+def users_gallery(n_users: int, samples_per_user: int, k: int = 64,
+                  n_min: int = 40, seed: int = 0) -> dict[str, np.ndarray]:
+    """PolyU-structured (n_users * samples_per_user, k) template gallery,
+    the port's copy of ``benchmarks/bench_matching.synth_users_gallery``:
+    each user is a random constellation of ``n_min`` minutiae and its
+    samples are jittered copies (1 px), so genuine pairs really match.
+    Returns numpy arrays keyed by the ``MinutiaeSet`` field names
+    (``features.minutiae.minutiae_from_numpy`` makes the tensors)."""
+    g = np.random.default_rng(seed)
+    n = n_users * samples_per_user
+    xy = np.zeros((n, k, 2), np.float32)
+    ori = np.zeros((n, k), np.float32)
+    ty = np.zeros((n, k), np.int32)
+    q = np.zeros((n, k), np.float32)
+    valid = np.zeros((n, k), bool)
+    i = 0
+    for _ in range(n_users):
+        base_xy = g.random((n_min, 2), dtype=np.float32) * 180 + 40
+        base_ori = (g.random(n_min, dtype=np.float32) - 0.5) * np.pi
+        base_ty = (g.random(n_min) > 0.5).astype(np.int32)
+        base_q = 0.4 + 0.6 * g.random(n_min, dtype=np.float32)
+        for _ in range(samples_per_user):
+            xy[i, :n_min] = base_xy + g.normal(0, 1.0, (n_min, 2))
+            ori[i, :n_min] = base_ori
+            ty[i, :n_min] = base_ty
+            q[i, :n_min] = base_q
+            valid[i, :n_min] = True
+            i += 1
+    return dict(xy=xy, minutia_type=ty, orientation=ori, quality=q,
+                coherence=q, angular_stability=q, valid=valid)
 
 
 def spiral_mask(h: int, w: int) -> np.ndarray:

@@ -226,7 +226,7 @@ def test_whole_slice_kernel_path(jax_chain, jax_kernel_chain):
 
 
 def test_gabor_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1 "):
         T.preprocess_fingerprint(torch.zeros(32, 32), gabor=True)
 
 

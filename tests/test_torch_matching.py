@@ -251,6 +251,49 @@ def test_screen_promote_batch_matches_jax():
     base = tcm.screen_pairs_batch_kernel(ta, tb, tp).numpy()
     np.testing.assert_array_equal(
         base, _np(jpm.screen_pairs_batch_pallas(ja, jb, jp, interpret=True)))
+    np.testing.assert_array_equal(
+        tcm.screen_promote_batch(ta, tb, tp, anchors=False).numpy(), base)
+
+
+def _split(ms: TSet, cuts) -> list:
+    return [TSet(*(x[s:e] for x in ms)) for s, e in zip(cuts[:-1], cuts[1:])]
+
+
+def test_match_pairs_batch_result_is_per_pair():
+    """A pair's full-pass result does not depend on the batch it is matched
+    in (PyTorch's float32 atan2 and power on the CPU differ by an ulp
+    between the vectorized loop and its scalar tail; the finish takes them
+    in float64)."""
+    (_, ta), (_, tb) = _rigid_pairs(5, pnum=37, impostors=12)
+    _, tp = _params(ransac_iter=24, min_inliers=6)
+    whole = tcm.match_pairs_batch(ta, tb, tp)
+    assert int((whole.final_score > 0).sum()) >= 15
+    for cuts in ([0, 1, 2, 5, 21, 37], [0, 16, 32, 37]):
+        parts = [tcm.match_pairs_batch(a, b, tp)
+                 for a, b in zip(_split(ta, cuts), _split(tb, cuts))]
+        for key in tr.MatchResult._fields:
+            got = torch.cat([getattr(r, key) for r in parts])
+            assert torch.equal(got, getattr(whole, key)), (cuts, key)
+
+
+def test_plain_twin_is_per_pair_beyond_its_pair_chunk():
+    """Kernel D's twin takes more than ``_PAIR_CHUNK`` pairs a slice at a
+    time; every pair's scores and counts are those of a call on it alone."""
+    (_, ta), (_, tb) = _rigid_pairs(9, pnum=tcm._PAIR_CHUNK + 9, k=8, n=8,
+                                    impostors=100)
+    _, tp = _params(ransac_iter=5, min_inliers=2)
+    wa, wb, _, _, possible, _ = tr._pair_stats(ta, tb)
+    theta, t, cand = tr.sample_hypotheses(ta, tb, wa, wb, tp)
+    args = (ta, tb, wa, wb, theta, t, cand, possible)
+    s, c = tcm.hypothesis_scores_plain(*args, tp)
+    assert s.shape == c.shape == (tcm._PAIR_CHUNK + 9, 5)
+    assert int((s > 0).sum()) > 0
+    cut = [0, 3, tcm._PAIR_CHUNK + 1, tcm._PAIR_CHUNK + 9]
+    parts = [tcm.hypothesis_scores_plain(
+        *(ms for ms in (_split(ta, cut)[i], _split(tb, cut)[i])),
+        *(x[cut[i]:cut[i + 1]] for x in args[2:]), tp) for i in range(3)]
+    assert torch.equal(torch.cat([p[0] for p in parts]), s)
+    assert torch.equal(torch.cat([p[1] for p in parts]), c)
 
 
 # --- pair-index matching, dataset, protocol ------------------------------------

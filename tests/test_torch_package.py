@@ -89,6 +89,12 @@ SLICE = {
                              "run_preprocessing", "main"],
     "features.runner": ["_overlay", "process_directory", "main"],
     "pipeline": ["run_all"],
+    "parallel.mesh": ["create_mesh", "gallery_sharding", "replicated"],
+    "parallel.gallery": ["shard_gallery", "pad_gallery", "all_pairs_scores",
+                         "take_templates", "shard_pairs_scores",
+                         "shard_pairs_screen", "unique_pairs",
+                         "shard_blocks_screen", "all_pairs_unique",
+                         "identify", "identify_batch"],
 }
 # Not listed: ``catalog.save_catalog`` takes the records ``scan_dataset``
 # returns (a list of dicts) where the JAX package's takes a DataFrame;
@@ -121,9 +127,20 @@ KERNEL_ENTRY = {
     ("ops.pallas_cc", "remove_small_split_pallas"):
         ("ops.cuda_cc", "remove_small_split"),
 }
-# The port keeps no use_pallas switch (the kernels are chosen by the
-# tensor's device) and no anchors=False screen ablation switch.
-DROPPED = {"use_pallas", "anchors"}
+# Parameters the port drops, per function (every other function drops
+# none): ``use_pallas``, since the port has one route and the tensor's
+# device chooses the kernel or its twin.
+DROPPED = {
+    (module, name): {"use_pallas"}
+    for module, names in (
+        ("preprocessing.enhance", ["denoise_image", "binarize",
+                                   "thinning_and_cleaning",
+                                   "preprocess_fingerprint"]),
+        ("matching.ransac", ["screen_promote_batch"]),
+        ("parallel.gallery", ["shard_pairs_scores", "shard_pairs_screen",
+                              "shard_blocks_screen", "all_pairs_unique",
+                              "identify", "identify_batch"]))
+    for name in names}
 # Parameters only the port has: the device an entry point runs on, last.
 ADDED = {"device"}
 
@@ -153,10 +170,11 @@ def test_port_imports_neither_jax_nor_cv2():
 
 
 def test_matcher_imports_neither_jax_cv2_pil_nor_the_jax_package():
-    """The matcher and the file pipeline run on a machine without JAX,
-    matplotlib or the JAX package."""
+    """The matcher, the gallery and the file pipeline run on a machine
+    without JAX, matplotlib or the JAX package."""
     assert _imports_in_a_fresh_process(
-        [f"{PORT_PKG}.matching.runner", f"{PORT_PKG}.pipeline",
+        [f"{PORT_PKG}.matching.runner", f"{PORT_PKG}.parallel",
+         f"{PORT_PKG}.pipeline",
          f"{PORT_PKG}.utils.io", f"{PORT_PKG}.evaluation"]) == []
 
 
@@ -221,7 +239,7 @@ def test_signatures_match_jax(module):
     for name in SLICE[module]:
         tm = importlib.import_module(
             f"{PORT_PKG}.{PORT_MODULE.get((module, name), module)}")
-        assert (_params(getattr(jm, name), DROPPED)
+        assert (_params(getattr(jm, name), DROPPED.get((module, name), ()))
                 == _params(getattr(tm, name), ADDED)), f"{module}.{name}"
 
 
@@ -469,6 +487,7 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
                                     "tools/match_variants.py",
                                     "tools/binarize_clahe_variants.py",
                                     "tools/morph_variants.py",
+                                    "tools/matcher_rate.py",
                                     "tools/polyu_set.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the

@@ -188,5 +188,5 @@ def test_run_all_skip_ssl_end_to_end(trees):
 
 
 def test_run_all_without_skip_ssl_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, items 3 and 4"):
         pipeline.run_all("nowhere", device="cpu")

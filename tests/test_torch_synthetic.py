@@ -1,15 +1,18 @@
 """The port's synthetic inputs against their originals: ``make_batch``
 against the root ``bench.py``'s, ``blob_prints`` against the blob generator
 of ``tests/test_end_to_end_eer.py`` (copied here as ``_print``, since that
-module needs cv2 to import). Both must be equal to the last bit: the card's
-smoke run and the JAX benchmark are compared on these images."""
+module needs cv2 to import), ``users_gallery`` against
+``benchmarks/bench_matching.synth_users_gallery``. All must be equal to the
+last bit: the card's smoke run and the JAX benchmarks are compared on
+these inputs."""
 
 import numpy as np
 import pytest
 
 import bench
+from benchmarks.bench_matching import synth_users_gallery
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-    blob_prints, make_batch)
+    blob_prints, make_batch, users_gallery)
 
 
 def _print(seed, phase=0.0, h=320, w=256):
@@ -46,3 +49,15 @@ def test_blob_prints_equal_the_eer_generator(seed, phase):
     ref = np.stack([_print(seed, phase), _print(seed + 1, 0.0)])
     np.testing.assert_array_equal(ours, ref.astype(np.float32) / 255.0)
     assert np.array_equal(np.round(ours * 255.0), ref)
+
+
+@pytest.mark.parametrize("n_min", [40, 12])
+def test_users_gallery_equals_bench_matching(n_min):
+    ours = users_gallery(4, 3, n_min=n_min)
+    ref = synth_users_gallery(4, 3, n_min=n_min)
+    assert set(ours) == set(ref._fields)
+    for field in ref._fields:
+        want = np.asarray(getattr(ref, field))
+        assert ours[field].dtype == want.dtype
+        assert ours[field].shape == want.shape == (12, 64) + want.shape[2:]
+        np.testing.assert_array_equal(ours[field], want)
