@@ -44,7 +44,18 @@ and drives the port's paths on the card:
   its twin on a screen tile's shape, 64 templates on the card against the
   CPU, the screen's recall at ``min_inliers=6`` on 12-minutia templates,
   and ``identify`` / ``identify_batch`` (64 probes) against the gallery
-  padded to 1,536 (ms/probe, top-1 user, each row equal to ``identify``).
+  padded to 1,536 (ms/probe, top-1 user, each row equal to ``identify``);
+- kernel C beyond one block's shared memory: its device-memory form
+  against its twin at (2, 2048, 1024), (2, 1536, 1536), (1, 2048, 2048) and
+  (1, 4096, 4096) on ridge quilts and adversarial masks, and a directory
+  whose largest file is 2048x1024 through ``run_preprocessing``;
+- the Gabor stage: ``preprocess_fingerprint(gabor=True)`` on
+  ``make_batch(128)`` with the config's parameters (the cuDNN bank against
+  the CPU port's tap-by-tap sums, the frequency map's blocks that differ,
+  launches, img/s beside Gabor off, the stage's ms, 4 images against the
+  CPU port) and the blob protocol with Gabor on;
+- the ops off the enhance path (geometry, greyscale morphology, the
+  bilateral filter, equalization, the spur trim), card against CPU port.
 
 Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
 pandas or matplotlib). Prints the card's name and
@@ -353,7 +364,8 @@ def kernel_b_adversarial(dev) -> None:
 def kernel_c_frames(dev, gated) -> None:
     """Kernel C against its twin beyond the main path's shape: frames that
     are no multiple of a word (and one a single pixel), frames of 512x512
-    and 1024x1024 (the second keeps one shared-memory plane); on ridge masks
+    and 1024x1024 (the second in device memory), each frame also in the
+    device-memory form; on ridge masks
     cut or tiled from the stage mask ``gated``, thick and one-pixel spirals,
     one-pixel lines, the checkerboard and the trivial planes (a full frame
     thins for min(H, W) / 2 iterations); both ``prune`` values and
@@ -378,14 +390,16 @@ def kernel_c_frames(dev, gated) -> None:
         bad = checks = 0
         for iters in (1, 2, 128):
             for prune in (False, True):
-                a = cuda_thin.zs_thin_cuda(batch, iters, prune)
                 b = cuda_thin.zs_thin_plain(batch, iters, prune)
-                torch.cuda.synchronize()
-                bad += int((a != b).sum())
-                checks += 1
+                for form in ("auto", "device"):
+                    a = cuda_thin.zs_thin_cuda(batch, iters, prune, form)
+                    torch.cuda.synchronize()
+                    bad += int((a != b).sum())
+                    checks += 1
         print(f"  {h}x{w}: mismatches {bad} in {checks} comparisons of "
               f"{batch.shape[0]} masks (ridges x2, {', '.join(masks)}; "
-              f"max_iters 1, 2, 128; prune off and on)")
+              f"max_iters 1, 2, 128; prune off and on; the size's form and "
+              f"the device-memory form)")
         if bad:
             fail(f"kernel C differs from its plain version at {h}x{w}")
     full = torch.ones((2, 320, 256), dtype=torch.bool, device=dev)
@@ -396,9 +410,76 @@ def kernel_c_frames(dev, gated) -> None:
         big = torch.stack([quilt.roll((37 * i, 53 * i), (0, 1))[:h, :w]
                            for i in range(nb)])
         ms = time_ms(lambda: cuda_thin.zs_thin_cuda(big, 128, True), 10)
+        other = ""
+        if h * -(-w // 32) * 8 <= 232448:       # one block takes the frame
+            other = " (device-memory form {:.4f} ms)".format(time_ms(
+                lambda: cuda_thin.zs_thin_cuda(big, 128, True, "device"), 10))
         b_ms, b_by = bound(2.0 * big.numel(), thinning_work(big))
         print(f"  {nb} frames of {h}x{w} (tiled stage masks): kernel {ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})")
+              f"ms{other}, bound {b_ms:.4f} ms ({b_by})")
+
+
+# (batch, H, W) of kernel C's frames beyond one block's shared memory
+C_LARGE = ((2, 2048, 1024), (2, 1536, 1536), (1, 2048, 2048), (1, 4096, 4096))
+
+
+def kernel_c_large_frames(dev, gated) -> list:
+    """Kernel C's device-memory form against its twin on frames whose packed
+    image exceeds one block's shared memory: the batch of ridge quilts
+    (stage masks tiled, each image shifted), and the adversarial masks with
+    a thick spiral (the one-pixel spiral's Python walk is too slow at these
+    sizes) as a second batch; ``max_iters`` 1, 2 and 128, prune off and on.
+    Returns one dict a frame with the ridge batch's time and bound."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_thin
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        spiral_mask)
+    hs, ws = gated.shape[-2:]
+    n = min(16, gated.shape[0])
+    quilt = gated[:n].reshape(-1, 4, hs, ws).permute(0, 2, 1, 3).reshape(
+        -1, 4 * ws)                                   # (n / 4 * hs, 4 * ws)
+    out = []
+    for nb, h, w in C_LARGE:
+        reps = (-(-h // quilt.shape[0]), -(-w // quilt.shape[1]))
+        tiled = quilt.repeat(*reps)
+        ridges = torch.stack([tiled.roll((97 * i, 61 * i), (0, 1))[:h, :w]
+                              for i in range(nb)])
+        yy = torch.arange(h, device=dev)[:, None]
+        xx = torch.arange(w, device=dev)[None, :]
+        masks = {
+            "thick spiral": torch.from_numpy(np.kron(
+                spiral_mask(-(-h // 8), -(-w // 8)),
+                np.ones((8, 8), bool))[:h, :w]).to(dev),
+            "serpentine": ((yy % 2 == 0) | ((yy % 4 == 1) & (xx == w - 1))
+                           | ((yy % 4 == 3) & (xx == 0))),
+            "checkerboard": (yy + xx) % 2 == 0,
+            "comb": (xx % 2 == 0) | (yy == 0),
+            "full": torch.ones((h, w), dtype=torch.bool, device=dev),
+            "empty": torch.zeros((h, w), dtype=torch.bool, device=dev),
+        }
+        adv = torch.stack(list(masks.values()))
+        bad = checks = 0
+        for batch in (ridges, adv):
+            for iters in (1, 2, 128):
+                for prune in (False, True):
+                    a = cuda_thin.zs_thin_cuda(batch, iters, prune)
+                    b = cuda_thin.zs_thin_plain(batch, iters, prune)
+                    torch.cuda.synchronize()
+                    bad += int((a != b).sum())
+                    checks += 1
+                    del a, b
+        ms = time_ms(lambda: cuda_thin.zs_thin_cuda(ridges, 128, True), 5)
+        b_ms, b_by = bound(2.0 * ridges.numel(), thinning_work(ridges))
+        print(f"  ({nb}, {h}, {w}): mismatches {bad} in {checks} comparisons "
+              f"(ridge quilts x{nb}; {', '.join(masks)}; max_iters 1, 2, 128; "
+              f"prune off and on); ridges: kernel {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        if bad:
+            fail(f"kernel C differs from its plain version at ({nb}, {h}, {w})")
+        out.append({"shape": [nb, h, w], "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by})
+    return out
 
 
 def kernel_e_small_frames(dev) -> None:
@@ -876,6 +957,7 @@ def blob_protocol_phase(dev, run_path, build) -> None:
                    pr["peers"], pr["seed"], pr["num_points"])
     print(f"    launches {dict(build.LAUNCHES)}")
     gap = float(run["genuine"].mean() - run["impostor"].mean())
+    print(f"    EER {run['eer']:.4f}, genuine - impostor mean {gap:.4f}")
     if len(ds.users) != 8 or len(run["g_pairs"]) != 8:
         fail("blob protocol: expected 8 users with 2 templates each")
     if build.LAUNCHES["match"] == 0:
@@ -938,6 +1020,247 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
           "production configuration):")
     blob_protocol_phase(dev, run_path, build)
     return d
+
+
+# --- the Gabor stage, a large frame from a file, the ops off the path ----------
+
+# configs/config_fingerprint.yml's preprocessing.gabor, without ``enabled``
+# (constants: the script imports nothing of the checkout before main())
+GABOR = dict(n_orientations=12, n_frequencies=4, block_size=32, kernel_size=11)
+# The card computes the Gabor bank as one cuDNN convolution in full float32
+# (enhance.exact_float32), the CPU as the tap-by-tap sums of conv2d_same in
+# the JAX package's order: the same products summed in another order, on
+# responses up to about 12.
+GABOR_BANK_ATOL = 1e-5
+# the frequency map: a block's value may differ only where the two FFTs
+# break a tie between bins, or by the fallback mean's float sums
+FREQ_ATOL = 1e-6
+
+
+def gabor_phase(dev, build, card, x, run_path, off_run_path) -> dict:
+    """The ``gabor=True`` path on the card: the bank and the selection
+    against the CPU port on the path's own stage inputs, the frequency map's
+    blocks that differ from the CPU port's, the path's launches (counts set
+    to 0 just before it and read just after) and img/s beside Gabor off (in
+    turns: off, on, on, off), the stage's ms alone, 4 images against the
+    CPU port (the enhance bounds), and the blob protocol with Gabor on."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import gabor as G
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        enhance as E)
+    res, _ = run_path(x)
+    torch.cuda.synchronize()
+    seg, mask, ori = res.segmented, res.mask, res.orientation
+
+    fm = G.estimate_ridge_frequency_blockwise(seg, mask=mask,
+                                              block_size=GABOR["block_size"])
+    fm_cpu = G.estimate_ridge_frequency_blockwise(
+        seg.cpu(), mask=mask.cpu(), block_size=GABOR["block_size"])
+    d = (fm.cpu() - fm_cpu).abs()
+    flipped = int((d > FREQ_ATOL).sum())
+    images = int((d > FREQ_ATOL).flatten(1).any(dim=1).sum())
+    # what the bank sees: each block's nearest of the n_frequencies bins
+    fbins = torch.logspace(math.log10(1 / 16), math.log10(1 / 4),
+                           GABOR["n_frequencies"], dtype=torch.float64)
+    nearest = lambda f: (f.double()[..., None] - fbins).abs().argmin(-1)
+    bins = int((nearest(fm.cpu()) != nearest(fm_cpu)).sum())
+    print(f"  frequency map, card vs CPU port: {flipped} of {d.numel()} "
+          f"blocks differ by > {FREQ_ATOL:g}, in {images} of {d.shape[0]} "
+          f"images (max |d| {float(d.max()):.3g}); blocks whose Gabor "
+          f"frequency bin differs: {bins}")
+    kw = dict(n_orientations=GABOR["n_orientations"],
+              n_frequencies=GABOR["n_frequencies"], size=GABOR["kernel_size"])
+    n = 16
+    resp = G.gabor_enhance_blockfreq(seg[:n], ori[:n], fm[:n], mask=mask[:n],
+                                     **kw)
+    resp_cpu = G.gabor_enhance_blockfreq(seg[:n].cpu(), ori[:n].cpu(),
+                                         fm[:n].cpu(), mask=mask[:n].cpu(),
+                                         **kw)
+    bank_err = float((resp.cpu() - resp_cpu).abs().max())
+    print(f"  bank (cuDNN, float32) and gather against the tap-by-tap sums "
+          f"and where loop of the CPU port, {n} images: max |d| "
+          f"{bank_err:.3g} (responses up to {float(resp_cpu.abs().max()):.3g})")
+    if not bank_err <= GABOR_BANK_ATOL:
+        fail(f"Gabor bank on the card off the CPU port by {bank_err:.3g}")
+
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    res, ms = run_path(x)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"  launches in one run with Gabor on: {launches}")
+    expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
+                "binarize": 1, "morph": 1}
+    if launches != expected:
+        fail(f"Gabor path launch counts {launches}, expected {expected}")
+    iters = 3
+    rates = {}
+    for name, fn in (("off", off_run_path), ("on", run_path),
+                     ("on", run_path), ("off", off_run_path)):
+        _, secs = wall_s(lambda: [fn(x) for _ in range(iters)])
+        rates.setdefault(name, []).append(x.shape[0] * iters / secs)
+    stage_ms = time_ms(lambda: E.gabor_stage(seg, mask, ori, dict(GABOR)), 5)
+    print(f"  {x.shape[0]} images, img/s in turns off, on, on, off: "
+          f"off {rates['off'][0]:.1f} / {rates['off'][1]:.1f}, on "
+          f"{rates['on'][0]:.1f} / {rates['on'][1]:.1f}; the Gabor stage "
+          f"alone {stage_ms:.2f} ms a batch; on {card}")
+    if not torch.isfinite(ms.xy).all() or res.skeleton.shape != x.shape:
+        fail("Gabor path: skeleton shape or minutiae values")
+
+    n_cmp = 4
+    res_c, ms_c = run_path(x[:n_cmp].cpu())
+    mism = int((res.skeleton[:n_cmp].cpu() != res_c.skeleton).sum())
+    total = int(res_c.skeleton.sum())
+    dcount = (ms.count[:n_cmp].cpu() - ms_c.count).abs()
+    print(f"  card vs CPU port with Gabor on, {n_cmp} images: skeleton "
+          f"mismatches {mism} of {total} skeleton px; valid-count diffs "
+          f"{dcount.tolist()}")
+    if mism > MAX_SKEL_MISMATCH * total or int(dcount.max()) > MAX_COUNT_DIFF:
+        fail("Gabor on: card and CPU port disagree beyond the stated bound")
+
+    print("  enhance -> match with Gabor on (8 users x 2 sessions of blob "
+          "prints, production configuration):")
+    blob_protocol_phase(dev, run_path, build)
+    return {"launches": launches, "img_s_on": rates["on"],
+            "img_s_off": rates["off"], "stage_ms": stage_ms,
+            "flipped_blocks": flipped, "flipped_bins": bins,
+            "bank_err": bank_err}
+
+
+def large_frame_file_phase(dev, build) -> None:
+    """A directory of 4 files, three 320x240 protocol prints and one of
+    2048x1024 (a frame the JAX package's native reader refuses and kernel
+    C's one-block form could not take), through ``run_preprocessing`` on
+    the card: the run pads to 2048x1024, and must complete with every
+    kernel of the path launched and a skeleton in every output."""
+    import os
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        runner as prun)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        encode_jpeg)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.io import (
+        read_image_grayscale)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        protocol_print)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cluster = root / "sorted" / "cluster_0"
+        cluster.mkdir(parents=True)
+        for u in (1, 2, 3):
+            (cluster / f"{u}_1_1.jpg").write_bytes(
+                encode_jpeg(protocol_print(10 + u, 0.0, 320, 240)))
+        (cluster / "4_1_1.jpg").write_bytes(
+            encode_jpeg(protocol_print(14, 0.0, 2048, 1024)))
+        try:
+            os.chdir(root)
+            for k in build.LAUNCHES:
+                build.LAUNCHES[k] = 0
+            stats, secs = wall_s(lambda: prun.run_preprocessing(
+                root / "sorted", root / "processed", batch_size=4,
+                debug=False))
+            launches = dict(build.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+        skel = [int((read_image_grayscale(
+            root / "processed" / "enhanced" / "cluster_0"
+            / f"{u}_1_1_skeleton.jpg") > 127).sum()) for u in (1, 2, 3, 4)]
+    print(f"  4 files (one 2048x1024): {stats['num_images']} images at "
+          f"{tuple(stats['canonical_shape'])} in {secs:.2f} s (reader "
+          f"{stats['reader']}); launches {launches}; skeleton px per image "
+          f"{skel}")
+    expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
+                "binarize": 1, "morph": 1}
+    if stats["num_images"] != 4 or tuple(stats["canonical_shape"]) != (
+            2048, 1024):
+        fail("large-frame run: images or canonical shape")
+    if launches != expected:
+        fail(f"large-frame run: launches {launches}, expected {expected}")
+    if min(skel) < 500:
+        fail("large-frame run: an image came out without a skeleton")
+
+
+# float tolerances of the ops off the path, card against the CPU port (the
+# CPU tests hold the CPU port to the JAX package at the same ones)
+OPS_ATOL = {"rotate_points": 1e-4, "angle_diff": 1e-6,
+            "orientation_diff": 1e-6, "resize_bilinear up": 1e-6,
+            "resize_bilinear down": 1e-6, "affine_warp": 1e-4,
+            "bilateral_filter": 1e-6}
+
+
+def ops_phase(dev) -> None:
+    """The ops the port carries beside the enhance path, each on the card
+    against the port on the CPU on the same inputs: exact where the CPU
+    tests hold them exact, else within OPS_ATOL; the float native loader
+    raises as the JAX one does where its library does not build, and the
+    config dump prints the tree."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.config import loader
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        denoise, geometry, histogram, morphology, skeleton)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import (
+        native_loader)
+    g = np.random.default_rng(12)
+    img = torch.from_numpy(g.random((4, 320, 256), dtype=np.float32))
+    ang = torch.from_numpy(g.uniform(-10, 10, (2, 4096)).astype(np.float32))
+    pts = torch.from_numpy(g.uniform(-150, 150, (64, 64, 2)).astype(np.float32))
+    theta = torch.from_numpy(g.uniform(-3.14, 3.14, (64,)).astype(np.float32))
+    sk = torch.from_numpy(g.random((4, 320, 256)) < 0.2)
+    mat = np.array([[0.978, 0.2079, -20.0], [-0.2079, 0.978, 35.0]])
+    calls = {
+        "rotate_points": lambda t: geometry.rotate_points(t["pts"], t["theta"]),
+        "angle_diff": lambda t: geometry.angle_diff(t["ang"][0], t["ang"][1]),
+        "orientation_diff": lambda t: geometry.orientation_diff(
+            t["ang"][0], t["ang"][1]),
+        "resize_bilinear up": lambda t: geometry.resize_bilinear(
+            t["img"], (400, 333)),
+        "resize_bilinear down": lambda t: geometry.resize_bilinear(
+            t["img"], (160, 97)),
+        "affine_warp": lambda t: geometry.affine_warp(t["img"][0], mat, 0.95),
+        "prune_endpoints": lambda t: skeleton.prune_endpoints(t["sk"], 3),
+        "equalize_hist": lambda t: histogram.equalize_hist(t["img"]),
+        "bilateral_filter": lambda t: denoise.bilateral_filter(t["img"]),
+        "reconstruction_by_dilation": lambda t: (
+            morphology.reconstruction_by_dilation(
+                morphology.erode(t["img"], 9), t["img"])),
+    }
+    for op in ("dilate", "erode", "opening", "closing"):
+        for size, shape in ((3, "rect"), (15, "ellipse")):
+            calls[f"{op} {size} {shape}"] = (
+                lambda t, op=op, size=size, shape=shape: getattr(
+                    morphology, op)(t["img"][:, :317, :250], size, shape))
+    cpu = dict(img=img, ang=ang, pts=pts, theta=theta, sk=sk)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    for name, fn in calls.items():
+        a, b = fn(card), fn(cpu)
+        torch.cuda.synchronize()
+        if a.dtype == torch.bool:
+            err = float((a.cpu() != b).sum())
+        else:
+            err = float((a.cpu().double() - b.double()).abs().max())
+        tol = OPS_ATOL.get(name, 0.0)
+        print(f"  {name}: card vs CPU port max |d| {err:.3g} (bound {tol:g})")
+        if not err <= tol:
+            fail(f"{name}: card and CPU port differ by {err:.3g}")
+    try:
+        native_loader.batch_load(["missing.jpg"], 8, 8)
+        print("  batch_load: the native library loaded here")
+    except RuntimeError as e:
+        print(f"  batch_load: RuntimeError ({e}), as the JAX binding raises "
+              "without the library")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loader.print_config_summary(loader.load_fingerprint_config(),
+                                    "fingerprint")
+    lines = out.getvalue().splitlines()
+    print(f"  print_config_summary: {len(lines)} lines, first {lines[0]!r}")
+    if len(lines) < 10:
+        fail("print_config_summary printed too little")
 
 
 # --- the file pipeline --------------------------------------------------------
@@ -1574,6 +1897,8 @@ def main() -> None:
           f"bound {thin_bound[0]:.4f} ms ({thin_bound[1]})")
     print("kernel C, other frames and masks:")
     kernel_c_frames(dev, gated)
+    print("kernel C, frames beyond one block (the device-memory form):")
+    c_large = kernel_c_large_frames(dev, gated)
 
     print("kernel E (non-local means):")
     nlm_err = 0.0
@@ -1867,6 +2192,25 @@ def main() -> None:
     print("gallery (parallel/: all_pairs_unique, identify, identify_batch):")
     gal = gallery_phase(dev, build, card, create_mesh())
 
+    # 8. the Gabor stage (preprocessing.gabor of the fingerprint config) on
+    # the main path's batch, and the blob protocol with it
+    def gabor_path(x):
+        res = preprocess_fingerprint(x, gabor=True, gabor_params=dict(GABOR))
+        ms = extract_minutiae(res.skeleton)
+        return res, postprocess_minutiae(ms, res.skeleton)
+
+    print("Gabor path (preprocess_fingerprint(gabor=True) -> extract -> "
+          "postprocess, make_batch(128)):")
+    gab = gabor_phase(dev, build, card, x, gabor_path, run_path)
+
+    # 9. a run whose largest file is 2048x1024
+    print("run_preprocessing on a directory with a 2048x1024 file:")
+    large_frame_file_phase(dev, build)
+
+    # 10. the ops off the enhance path
+    print("ops off the enhance path, card against the CPU port:")
+    ops_phase(dev)
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -1921,6 +2265,13 @@ def main() -> None:
         k["file_pipeline_launches"] = fp["launches"][stage][counter]
     # kernel D's launches in the gallery's all-pairs sweep with the cascade
     kernels[3]["gallery_launches"] = gal["launches"]
+    # kernel C beyond one block's shared memory (the device-memory form)
+    kernels[2]["large_frames"] = c_large
+    # launches of each kernel on the Gabor path (its counts set to 0 just
+    # before it and read just after)
+    for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
+                                    "binarize", "morph")):
+        k["gabor_path_launches"] = gab["launches"][counter]
     for k in kernels:
         for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -279,3 +279,19 @@ def load_matching_config(path: str | Path | None = None) -> ConfigNode:
 def load_segmentation_config(path: str | Path | None = None) -> ConfigNode:
     """UNet++ segmentation training params."""
     return _load("config_segmentation.yml", path)
+
+
+def print_config_summary(cfg: ConfigNode, title: str = "config") -> None:
+    """Console dump of a config tree."""
+    print(f"===== {title} =====")
+
+    def walk(node, indent=0):
+        for k in node:
+            v = node[k]
+            if isinstance(v, ConfigNode):
+                print("  " * indent + f"{k}:")
+                walk(v, indent + 1)
+            else:
+                print("  " * indent + f"{k}: {v}")
+
+    walk(cfg)

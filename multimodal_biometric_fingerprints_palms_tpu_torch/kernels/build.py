@@ -52,8 +52,10 @@ _SIGNATURES = {
     # min_size, max_size, stream
     "mbfp_cc_filter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P),
-    # mask, out, nb, h, w, max_iters, prune, stream
-    "mbfp_zs_thin": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # mask, out, scratch, nb, h, w, max_iters, prune, form, stream
+    "mbfp_zs_thin": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # nb, h, w, form, &bytes (long long)
+    "mbfp_zs_thin_scratch": (_I, _I, _I, _I, _P),
     # xy, orientation, type, valid, weight of A and of B; theta, t,
     # has_cand, possible; scores, counts; p, h, k, dist2, orient, sigma_d2,
     # sigma_o2, use_type, min_inliers, stream

@@ -1,10 +1,13 @@
 """Zhang-Suen thinning: kernel C (``csrc/thin.cu``) and its plain twins.
 
 Replaces the TPU kernel ``ops/pallas_bitpack.py:zs_thin_bitpacked``, which
-thinned 32 images per int32 plane inside VMEM. On the card one block holds
-one image for the whole fixpoint, packed 32 pixels of a row to a word, so
-the image crosses device memory once each way and a subpass is about 100
-bitwise operations per word (see the source).
+thinned 32 images per int32 plane inside VMEM. On the card the image is
+packed 32 pixels of a row to a word, so a subpass is about 100 bitwise
+operations per word (see the source). A frame whose two packed planes fit
+one block's shared memory (up to about 960x960) stays in one block for the
+whole fixpoint and crosses device memory once each way; a larger one keeps
+its two planes in device memory, in scratch this wrapper allocates, with a
+launch a subpass. Any H, W >= 1 is taken.
 
 ``zs_thin`` dispatches on the device: CPU tensors run ``zs_thin_plain``,
 CUDA tensors launch the kernel; anything else raises.
@@ -15,13 +18,16 @@ run.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels import build as _build
 
-_SMEM_LIMIT = 232448     # bytes of shared memory one Hopper block may use
 _WORD = 32               # pixels of a row per packed word
+# the kernel's forms: by frame size, one block an image, device memory
+_FORMS = {"auto": 0, "block": 1, "device": 2}
 
 
 def _ring(x: torch.Tensor) -> list[torch.Tensor]:
@@ -162,28 +168,43 @@ def zs_thin_words_plain(mask: torch.Tensor, max_iters: int = 128,
 
 
 def zs_thin_cuda(mask: torch.Tensor, max_iters: int = 128,
-                 prune: bool = False) -> torch.Tensor:
-    """Kernel C on a CUDA (..., H, W) mask; same contract as the plain twin.
-    Any H, W >= 1 whose packed image (4 * H * ceil(W/32) bytes) fits one
-    block's shared memory: 1024x1024 does, 2048x1024 does not."""
+                 prune: bool = False, form: str = "auto") -> torch.Tensor:
+    """Kernel C on a CUDA (..., H, W) mask; same contract as the plain twin,
+    for any H, W >= 1. ``form`` "auto" picks one block an image where the
+    two packed planes fit its shared memory and device memory elsewhere;
+    "block" and "device" ask for one (``chip_smoke.py`` holds both to the
+    twin; "block" raises for a frame that does not fit)."""
     if mask.device.type != "cuda":
         raise ValueError(f"zs_thin_cuda needs a CUDA tensor, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"zs_thin_cuda needs a bool/uint8 mask, got {mask.dtype}")
+    if form not in _FORMS:
+        raise ValueError(f"form {form!r} is not one of {sorted(_FORMS)}")
     h, w = mask.shape[-2:]
-    if h < 1 or w < 1 or 4 * h * (-(-w // _WORD)) > _SMEM_LIMIT:
-        raise ValueError(f"{h}x{w} image: the packed image must fit one "
-                         f"block's shared memory ({_SMEM_LIMIT} bytes)")
+    if h < 1 or w < 1:
+        raise ValueError(f"{h}x{w} image: H and W must be >= 1")
     if mask.dtype != torch.bool:
         mask = mask != 0                 # the kernel packs bytes that are 0 or 1
     flat = mask.reshape(-1, h, w).contiguous()
     b = flat.shape[0]
     if b == 0 or b >= 2 ** 31:
         raise ValueError(f"batch {b} out of range")
+    lib = _build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    _build.check(lib.mbfp_zs_thin_scratch(b, h, w, _FORMS[form],
+                                          ctypes.addressof(nbytes)),
+                 "mbfp_zs_thin_scratch")
+    if nbytes.value < 0:
+        raise ValueError(f"{h}x{w} image: two packed planes do not fit one "
+                         "block's shared memory (form 'block')")
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=mask.device)
+               if nbytes.value else None)
     out = torch.empty((b, h, w), dtype=torch.bool, device=mask.device)
-    rc = _build.load_library().mbfp_zs_thin(
-        flat.data_ptr(), out.data_ptr(), b, h, w,
-        int(max_iters), int(bool(prune)), _build.current_stream(mask))
+    rc = lib.mbfp_zs_thin(
+        flat.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h, w,
+        int(max_iters), int(bool(prune)), _FORMS[form],
+        _build.current_stream(mask))
     _build.check(rc, "mbfp_zs_thin")
     _build.LAUNCHES["thin"] += 1
     return out.reshape(mask.shape)

@@ -1,4 +1,5 @@
-"""Non-local means denoising (port of ``ops/denoise.py:nlm_denoise``).
+"""Non-local means denoising and the bilateral filter (port of
+``ops/denoise.py``).
 
 cv2.fastNlMeansDenoising(h=10, template=7, search=21) semantics over a
 reflect-padded 21x21 search window and a 7x7 template. In the default
@@ -15,10 +16,15 @@ as one batched tensor), CUDA tensors launch kernel E
 kernel entry points; on the card both are kernel E, which visits every
 offset in the twin's order and so needs neither the mirror-offset reuse nor
 the border-ring recompute that shaped the TPU forms.
+
+``bilateral_filter`` is plain PyTorch on every device. Its range weight
+divides by a float32 tensor: on CUDA a division by a Python scalar is a
+multiplication by its reciprocal, one ulp off.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .cuda_nlm import nlm_denoise_cuda
@@ -99,3 +105,27 @@ def nlm_denoise_blocked(img: torch.Tensor, h: float = 10.0, template: int = 7,
     """(B, H, W) non-local means, the entry point named after the JAX
     package's offset-blocked kernel."""
     return nlm_denoise(img, h, template, search, precision)
+
+
+def bilateral_filter(x: torch.Tensor, d: int = 5, sigma_color: float = 50.0,
+                     sigma_space: float = 7.0) -> torch.Tensor:
+    """Bilateral filter (cv2.bilateralFilter semantics) over (..., H, W)."""
+    sc = sigma_color / 255.0
+    r = d // 2
+    hh, ww = x.shape[-2:]
+    # jnp.pad mode="reflect" is numpy's reflect, i.e. the "mirror" rule
+    pad = _pad_axis(_pad_axis(x, x.ndim - 2, r, r, "mirror"),
+                    x.ndim - 1, r, r, "mirror")
+    two_sc2 = torch.full((), 2.0 * sc ** 2, dtype=x.dtype, device=x.device)
+    acc = torch.zeros_like(x)
+    wacc = torch.zeros_like(x)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            shifted = pad[..., r + dy:r + dy + hh, r + dx:r + dx + ww]
+            ws = float(np.float32(np.exp(-(dy * dy + dx * dx)
+                                         / (2.0 * sigma_space ** 2))))
+            wc = torch.exp(-((x - shifted) ** 2) / two_sc2)
+            w = ws * wc
+            acc = acc + w * shifted
+            wacc = wacc + w
+    return acc / torch.clamp(wacc, min=1e-8)

@@ -1,5 +1,5 @@
-"""Histogram ops: percentile stretch, Otsu thresholding, CLAHE
-(port of ``ops/histogram.py``).
+"""Histogram ops: percentile stretch, Otsu thresholding, CLAHE, global
+equalization (port of ``ops/histogram.py``).
 
 Histograms are scatter-adds (``scatter_add_``), which are cheap on a GPU;
 quantiles are the same value-axis bisection as the JAX package. CLAHE
@@ -152,3 +152,13 @@ def clahe(x: torch.Tensor, clip_limit: float = 2.5, grid: int = 8) -> torch.Tens
     tensors run kernel A (``csrc/clahe.cu``); CPU tensors its plain twin.
     """
     return _clahe_dispatch(x, clip_limit, grid)
+
+
+def equalize_hist(x: torch.Tensor) -> torch.Tensor:
+    """Global histogram equalization over the trailing two dims."""
+    lead = x.shape[:-2]
+    h, w = x.shape[-2:]
+    v = _to_u8(x).reshape(lead + (-1,)).to(torch.int64)
+    cdf = torch.cumsum(histogram256(v), dim=-1)
+    cdf = cdf / torch.clamp(cdf[..., -1:], min=1.0)
+    return torch.gather(cdf, -1, v).reshape(lead + (h, w))

@@ -1,5 +1,7 @@
 """Skeletonization (port of ``ops/skeleton.py``): Zhang-Suen thinning,
-which runs kernel C (``ops.cuda_thin``) on CUDA tensors."""
+which runs kernel C (``ops.cuda_thin``) on CUDA tensors; the 8-neighbour
+count, the prune of isolated pixels and ``prune_endpoints``, the spur
+trim, in plain PyTorch."""
 
 from __future__ import annotations
 
@@ -27,3 +29,11 @@ def skeletonize(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
 def prune_isolated(skel: torch.Tensor) -> torch.Tensor:
     """Drop skeleton pixels with no 8-neighbours."""
     return prune_isolated_plain(skel)
+
+
+def prune_endpoints(skel: torch.Tensor, iterations: int = 1) -> torch.Tensor:
+    """Iteratively remove endpoints (neighbour count == 1) to shorten spurs."""
+    s = skel.to(torch.bool)
+    for _ in range(iterations):
+        s = s & (neighbor_count(s) != 1.0)
+    return s

@@ -1,5 +1,6 @@
 """The enhancement chain (port of ``preprocessing/enhance.py``):
-normalize -> denoise -> segment -> orientation -> binarize -> smooth -> thin.
+normalize -> denoise -> segment -> orientation -> [Gabor] -> binarize ->
+smooth -> thin.
 
 Every stage consumes and produces batched (..., H, W) float32 tensors in
 [0, 1] (masks bool) on the input's device. On a CUDA device the stages are
@@ -22,6 +23,8 @@ from ..ops.cuda_kernels import bin_to_unit
 from ..ops.cuda_thin import zs_thin
 from ..ops.denoise import nlm_denoise
 from ..ops.filters import gaussian_blur, gaussian_blur_cv, sobel
+from ..ops.gabor import (estimate_ridge_frequency_blockwise,
+                         gabor_enhance_blockfreq)
 from ..ops.histogram import clahe, otsu_threshold, percentile_stretch
 from ..ops.morphology import binary_close_open_packed
 from ..ops.orientation import OrientationField, compute_orientation_field
@@ -132,6 +135,28 @@ def thinning_and_cleaning(binary_smooth: torch.Tensor,
     return zs_thin(mask, 128, prune=True)
 
 
+def gabor_stage(segmented: torch.Tensor, mask: torch.Tensor,
+                orientation: torch.Tensor,
+                gabor_params: dict | None = None) -> torch.Tensor:
+    """The ``gabor=True`` branch: block ridge-frequency map -> the
+    orientation/frequency Gabor bank -> [0, 1] by each image's largest
+    response -> the segmented grey outside the mask. Returns the image
+    binarize runs on."""
+    gp = gabor_params or {}
+    freq_map = estimate_ridge_frequency_blockwise(
+        segmented, mask=mask, block_size=gp.get("block_size", 32))
+    resp = gabor_enhance_blockfreq(
+        segmented, orientation, freq_map, mask=mask,
+        n_orientations=gp.get("n_orientations", 12),
+        n_frequencies=gp.get("n_frequencies", 4),
+        size=gp.get("kernel_size", 11))
+    # map back to [0,1] with ridges dark (ridge centres correlate
+    # negatively with the even cos kernel on dark-ridge images)
+    amp = resp.abs().amax(dim=(-2, -1), keepdim=True)
+    out = torch.clamp(0.5 + 0.5 * resp / torch.clamp(amp, min=1e-6), 0.0, 1.0)
+    return torch.where(mask, out, segmented)
+
+
 def preprocess_fingerprint(img: torch.Tensor,
                            block_size: int = 16,
                            orientation_sigma: float = 3.0,
@@ -142,13 +167,11 @@ def preprocess_fingerprint(img: torch.Tensor,
     """Full enhancement chain over (..., H, W) float32 in [0,1] on the
     input's device. H, W must be multiples of 32.
 
-    gabor=True (the Gabor enhancement stage) is not ported yet.
+    gabor=True inserts the Gabor enhancement stage (``ops/gabor.py``):
+    after the orientation field, a per-block ridge-frequency estimate
+    drives an orientation/frequency-quantized Gabor bank, and binarization
+    runs on the enhanced image. Config key: preprocessing.gabor.*.
     """
-    if gabor:
-        raise NotImplementedError(
-            "gabor=True is not ported yet: ROADMAP.md queue 1, item 1 "
-            "(ops/gabor.py)")
-    del gabor_params
     exact_float32()
     normalized = normalize_image(img)
     denoised = denoise_image(normalized)
@@ -159,7 +182,9 @@ def preprocess_fingerprint(img: torch.Tensor,
         smooth_sigma=orientation_sigma,
         smooth_orientation_sigma=orientation_sigma,
     )
-    binary = binarize(segmented)
+    to_binarize = (gabor_stage(segmented, mask, field.orientation,
+                               gabor_params) if gabor else segmented)
+    binary = binarize(to_binarize)
     binary_smooth = smooth_fingerprint_skeleton(binary.to(torch.float32))
     skeleton = thinning_and_cleaning(binary_smooth, field.reliability)
 

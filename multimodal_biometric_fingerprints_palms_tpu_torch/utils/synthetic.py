@@ -8,6 +8,15 @@ after quality filtering (``make_batch``'s prints keep only 1-8, in the JAX
 package and in the port alike). ``users_gallery`` is a copy of the matcher
 benchmark's template gallery (``benchmarks/bench_matching.py``).
 ``tests/test_torch_synthetic.py`` holds all three equal to their originals.
+
+``protocol_print`` and ``degrade_session`` are the Gabor EER protocol's
+generator (``benchmarks/gabor_eer.py``'s ``_print`` and ``_degrade``): a
+blob print as uint8, and its NIST-style second session (rigid placement,
+blur, contrast loss, smudges, sensor noise). The JAX script degrades with
+OpenCV; this copy warps with the port's ``ops.geometry.affine_warp`` and
+blurs with ``ops.filters.gaussian_blur_cv`` (both imported when called,
+so importing this module needs numpy only) and fills its smudges with
+numpy, so its second sessions are not the JAX script's images.
 """
 
 from __future__ import annotations
@@ -130,3 +139,77 @@ def adversarial_masks(h: int, w: int) -> dict[str, np.ndarray]:
         "full": np.ones((h, w), bool),
         "empty": np.zeros((h, w), bool),
     }
+
+
+def protocol_print(seed: int, phase: float = 0.0, h: int = 320,
+                   w: int = 256) -> np.ndarray:
+    """(h, w) uint8 blob print of the Gabor EER protocol: every print shares
+    the global ridge field, only the blob constellations differ."""
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = np.sqrt(((yy - h / 2) / 1.1) ** 2 + (xx - w / 2) ** 2)
+    ang = np.arctan2(yy - h / 2, xx - w / 2)
+    ridges = 0.5 + 0.5 * np.cos(r / 4.5 + 2.0 * np.sin(3 * ang) + phase)
+    blobs = np.zeros((h, w), np.float32)
+    for _ in range(110):
+        by, bx = g.integers(40, h - 40), g.integers(40, w - 40)
+        rr = g.integers(2, 6)
+        blobs[by - rr:by + rr, bx - rr:bx + rr] = 1.0
+    ell = (((yy - h / 2) / (0.42 * h)) ** 2
+           + ((xx - w / 2) / (0.40 * w)) ** 2) < 1
+    img = np.where(ell, 1.0 - 0.8 * ridges * (1 - 0.9 * blobs), 0.95)
+    return (np.clip(img + g.normal(0, 0.02, (h, w)), 0, 1) * 255
+            ).astype(np.uint8)
+
+
+def _rotation_matrix(cx: float, cy: float, degrees: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D((cx, cy), degrees, 1.0), float64."""
+    a = np.deg2rad(degrees)
+    alpha, beta = np.cos(a), np.sin(a)
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _fill_ellipse(f: np.ndarray, cx: int, cy: int, ax: int, ay: int,
+                  degrees: float, value: float) -> None:
+    """Set the pixels of a filled ellipse (semi-axes ``ax`` along its own
+    x, ``ay`` along its y, rotated by ``degrees``) to ``value``."""
+    yy, xx = np.mgrid[0:f.shape[0], 0:f.shape[1]]
+    dx, dy = xx - cx, yy - cy
+    a = np.deg2rad(degrees)
+    u = dx * np.cos(a) + dy * np.sin(a)
+    v = -dx * np.sin(a) + dy * np.cos(a)
+    f[(u / ax) ** 2 + (v / ay) ** 2 <= 1.0] = value
+
+
+def degrade_session(img: np.ndarray, seed: int,
+                    severity: float = 1.0) -> np.ndarray:
+    """NIST-style second session of a (h, w) uint8 print: random rigid
+    placement, optic blur, contrast loss, occlusion smudges and zero-mean
+    sensor noise, each scaled by ``severity``; the random draws are the JAX
+    script's, in its order. Returns uint8."""
+    import torch
+    from ..ops.filters import gaussian_blur_cv
+    from ..ops.geometry import affine_warp
+    g = np.random.default_rng(1000 + seed)
+    s = float(severity)
+    h, w = img.shape
+    theta = g.uniform(-12, 12) * s
+    tx, ty = g.uniform(-10, 10, 2) * s
+    m = _rotation_matrix(w / 2, h / 2, theta)
+    m[:, 2] += (tx, ty)
+    warped = affine_warp(torch.from_numpy(img.astype(np.float32)), m,
+                         fill=242.0)
+    out = np.clip(np.round(warped.numpy()), 0, 255).astype(np.uint8)
+    f = out.astype(np.float32) / 255.0
+    if s > 0.2:
+        f = gaussian_blur_cv(torch.from_numpy(f), 5, max(1e-3, 1.0 * s),
+                             border="mirror").numpy()
+    f = 0.5 + (1.0 - 0.45 * s) * (f - 0.5)         # contrast loss
+    for _ in range(int(round(6 * s))):             # smudges
+        cy, cx = g.integers(30, h - 30), g.integers(30, w - 30)
+        ax_, ay_ = int(g.integers(8, 26)), int(g.integers(6, 18))
+        _fill_ellipse(f, int(cx), int(cy), ax_, ay_,
+                      float(g.uniform(0, 180)), float(g.uniform(0.55, 0.8)))
+    f = f + g.normal(0, 0.10 * s, (h, w)).astype(np.float32)
+    return (np.clip(f, 0, 1) * 255).astype(np.uint8)

@@ -226,8 +226,16 @@ def test_whole_slice_kernel_path(jax_chain, jax_kernel_chain):
 
 
 def test_gabor_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1 "):
-        T.preprocess_fingerprint(torch.zeros(32, 32), gabor=True)
+    """The Gabor stage, once refused here, is ported
+    (tests/test_torch_gabor.py holds it to the JAX package): gabor=True
+    runs, and its parameters reach the bank (another kernel size, another
+    binary image)."""
+    x = torch.from_numpy(make_batch(1)[:, :64, :64])
+    a = T.preprocess_fingerprint(x, gabor=True)
+    b = T.preprocess_fingerprint(x, gabor=True, gabor_params=dict(
+        n_orientations=12, n_frequencies=4, block_size=32, kernel_size=7))
+    assert a.skeleton.shape == (1, 64, 64)
+    assert not torch.equal(a.binary, b.binary)
 
 
 def test_quality_scores_equal_numpy_true_division():

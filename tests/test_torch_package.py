@@ -9,6 +9,7 @@ the card unless the caller asks for the CPU."""
 import ast
 import importlib
 import inspect
+import math
 import os
 import re
 import subprocess
@@ -42,9 +43,11 @@ SLICE = {
     "ops.histogram": ["histogram256", "quantiles_bisect", "quantiles_u8",
                       "quantiles_approx", "percentile_stretch",
                       "_otsu_from_hist", "otsu_threshold",
-                      "otsu_threshold_patchwise", "clahe"],
-    "ops.denoise": ["nlm_denoise"],
-    "ops.morphology": ["ellipse_se", "binary_dilate", "binary_erode",
+                      "otsu_threshold_patchwise", "clahe", "equalize_hist"],
+    "ops.denoise": ["nlm_denoise", "bilateral_filter"],
+    "ops.morphology": ["ellipse_se", "dilate", "erode", "opening", "closing",
+                       "reconstruction_by_dilation",
+                       "binary_dilate", "binary_erode",
                        "binary_opening", "binary_closing",
                        "binary_close_open_packed",
                        "binary_reconstruction_by_dilation"],
@@ -52,9 +55,15 @@ SLICE = {
                        "remove_small_objects", "remove_small_holes",
                        "clean_mask", "largest_component", "convex_hull_mask",
                        "mask_bbox"],
-    "ops.skeleton": ["neighbor_count", "skeletonize", "prune_isolated"],
+    "ops.skeleton": ["neighbor_count", "skeletonize", "prune_isolated",
+                     "prune_endpoints"],
     "ops.orientation": ["compute_orientation_field"],
-    "ops.geometry": ["upsample_bilinear_matmul"],
+    "ops.geometry": ["rotate_points", "angle_diff", "orientation_diff",
+                     "resize_bilinear", "upsample_bilinear_matmul",
+                     "affine_warp"],
+    "ops.gabor": ["gabor_kernel", "gabor_enhance",
+                  "estimate_ridge_frequency_blockwise",
+                  "gabor_enhance_blockfreq", "estimate_ridge_frequency"],
     "preprocessing.enhance": ["normalize_image", "denoise_image",
                               "segment_fingerprint", "binarize",
                               "smooth_fingerprint_skeleton",
@@ -74,10 +83,11 @@ SLICE = {
                  "save_minutiae_json", "load_minutiae_matrix", "pad_minutiae"],
     "utils.logging": ["console_step", "get_file_logger"],
     "utils.padding": ["pad_to_multiple", "canonical_shape", "pad_image_batch"],
-    "utils.native_loader": ["native_available", "batch_load_u8"],
+    "utils.native_loader": ["native_available", "batch_load",
+                            "batch_load_u8"],
     "config.loader": ["load_yaml_config", "load_fingerprint_config",
                       "load_classifier_config", "load_matching_config",
-                      "load_segmentation_config"],
+                      "load_segmentation_config", "print_config_summary"],
     "catalog.parse": ["parse_filename", "user_id_from_filename"],
     "catalog.catalog": ["scan_cluster", "scan_dataset", "main"],
     "catalog.verify": ["check_id_consistency"],
@@ -209,6 +219,73 @@ def test_runners_divide_no_tensor_by_a_python_scalar(module):
     src = (ROOT / PORT_PKG / module).read_text()
     for form in ("/ 255.0", "/ 255)", "/255", "/ 255\n"):
         assert form not in src, form
+
+
+def _divisions_by_scalars(fn):
+    """Python-scalar divisors of tensors that ``fn`` divides, other than
+    powers of two (exact on every device)."""
+    from torch.overrides import TorchFunctionMode
+    found = []
+    divs = {torch.Tensor.__truediv__, torch.Tensor.div, torch.div,
+            torch.true_divide, torch.Tensor.__itruediv__, torch.Tensor.div_}
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in divs and len(args) > 1 and isinstance(
+                    args[1], (int, float)):
+                m, _ = math.frexp(float(args[1]))
+                if abs(m) != 0.5:
+                    found.append(args[1])
+            return func(*args, **kwargs)
+
+    with Watch():
+        fn()
+    return found
+
+
+def _op_calls():
+    """One call of each port op that divides, on small CPU tensors."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        gabor as TGb, geometry as TG, histogram as TH, morphology as TM)
+    g = np.random.default_rng(10)
+    x = torch.from_numpy(g.random((2, 64, 64), dtype=np.float32))
+    o = (torch.from_numpy(g.random((2, 64, 64), dtype=np.float32)) - 0.5
+         ) * math.pi
+    m = x > 0.2
+    fm = TGb.estimate_ridge_frequency_blockwise(x, mask=m)
+    mat = np.array([[0.9, 0.1, 2.0], [-0.1, 0.9, -1.0]])
+    return {
+        "gabor_enhance": lambda: TGb.gabor_enhance(x, o, mask=m),
+        "estimate_ridge_frequency_blockwise":
+            lambda: TGb.estimate_ridge_frequency_blockwise(x, mask=m),
+        "gabor_enhance_blockfreq":
+            lambda: TGb.gabor_enhance_blockfreq(x, o, fm, mask=m),
+        "estimate_ridge_frequency":
+            lambda: TGb.estimate_ridge_frequency(x, o, mask=m),
+        "bilateral_filter": lambda: denoise.bilateral_filter(x),
+        "nlm_denoise_plain": lambda: denoise.nlm_denoise_plain(
+            x[:, :16, :16], search_window=5),
+        "resize_bilinear": lambda: TG.resize_bilinear(x, (40, 90)),
+        "affine_warp": lambda: TG.affine_warp(x[0], mat),
+        "angle_diff": lambda: TG.angle_diff(x, o),
+        "equalize_hist": lambda: TH.equalize_hist(x),
+        "reconstruction_by_dilation":
+            lambda: TM.reconstruction_by_dilation(TM.erode(x, 5), x),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_op_calls()))
+def test_ops_divide_no_tensor_by_a_python_scalar(name):
+    """``ops/gabor.py``, ``ops/denoise.py`` and the other ops' divisions of
+    a tensor take a tensor divisor (or a power of two), as the runners'
+    do: watched as they run, not read from the source."""
+    assert _divisions_by_scalars(_op_calls()[name]) == []
+
+
+def test_the_division_watch_sees_a_scalar_division():
+    assert _divisions_by_scalars(lambda: torch.ones(3) / 255.0) == [255.0]
+    assert _divisions_by_scalars(lambda: torch.ones(3) / 4.0) == []
 
 
 @pytest.mark.parametrize("entry", ["preprocessing.runner.run_preprocessing",
@@ -343,13 +420,30 @@ def test_kernels_f_and_a_take_scratch_from_the_wrapper():
 
 
 def test_thinning_wrapper_takes_large_and_ragged_frames():
-    """Kernel C's wrapper refuses a frame only when its packed image
-    (4 * H * ceil(W/32) bytes) exceeds one block's shared memory."""
-    fits = lambda h, w: 4 * h * -(-w // 32) <= cuda_thin._SMEM_LIMIT
-    assert fits(1024, 1024) and fits(512, 512) and fits(1, 1) and fits(320, 250)
-    assert not fits(2048, 1024)
-    src = (build.CSRC_DIR / "thin.cu").read_text()
-    assert "kSmemLimit = 232448" in src and "__syncthreads_or" in src
+    """Kernel C's wrapper keeps no frame limit: a frame whose two packed
+    planes exceed one block's shared memory runs the device-memory form,
+    with scratch the wrapper allocates at the size the library reports."""
+    src = inspect.getsource(cuda_thin)
+    assert not hasattr(cuda_thin, "_SMEM_LIMIT")
+    for word in ("_SMEM_LIMIT", "232448", "must fit"):
+        assert word not in src, word
+    assert "mbfp_zs_thin_scratch" in src and "torch.empty(" in src
+    cu = (build.CSRC_DIR / "thin.cu").read_text()
+    assert "kSmemLimit = 232448" in cu and "__syncthreads_or" in cu
+    for word in ("subpass_kernel", "pack_kernel", "store_kernel",
+                 'extern "C" int mbfp_zs_thin_scratch(',
+                 "cudaStreamSynchronize"):
+        assert word in cu, word
+    assert "kOwn" not in cu                 # the one-plane form is gone
+    assert build._SIGNATURES["mbfp_zs_thin"].count(build._P) == 4
+    params = inspect.signature(cuda_thin.zs_thin_cuda).parameters
+    assert list(params)[:3] == list(
+        inspect.signature(cuda_thin.zs_thin_plain).parameters)
+    assert params["form"].default == "auto"
+    m = torch.zeros((1, 2048, 1024), dtype=torch.bool, device="meta")
+    for form in ("auto", "block", "device"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cuda_thin.zs_thin_cuda(m, form=form)
 
 
 def test_kernel_g_takes_any_frame():
@@ -488,7 +582,8 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
                                     "tools/binarize_clahe_variants.py",
                                     "tools/morph_variants.py",
                                     "tools/matcher_rate.py",
-                                    "tools/polyu_set.py"])
+                                    "tools/polyu_set.py",
+                                    "tools/gabor_eer_port.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has

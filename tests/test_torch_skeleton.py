@@ -1,7 +1,8 @@
-"""Port parity: Zhang-Suen thinning (kernel C's plain twin) and the prune
-of isolated pixels, against the JAX package's XLA form and its bit-packed
-Pallas kernel (interpret mode) on the CPU; and kernel C's word-parallel
-algebra in PyTorch against that twin. Skeletons must match exactly."""
+"""Port parity: Zhang-Suen thinning (kernel C's plain twin), the prune of
+isolated pixels and the spur trim (``prune_endpoints``), against the JAX
+package's XLA form and its bit-packed Pallas kernel (interpret mode) on the
+CPU; and kernel C's word-parallel algebra in PyTorch against that twin, on
+frames of one block and beyond it. Skeletons must match exactly."""
 
 import numpy as np
 import pytest
@@ -82,6 +83,29 @@ def test_words_plain_equals_plain(w, prune, max_iters):
     assert got.dtype == torch.bool and got.shape == m.shape
     np.testing.assert_array_equal(
         got.numpy(), zs_thin_plain(m, max_iters, prune).numpy())
+
+
+@pytest.mark.parametrize("max_iters", [2, 128])
+def test_words_plain_equals_plain_beyond_one_block(max_iters):
+    """A frame whose two packed planes exceed one block's shared memory
+    (1,000 rows of 33 words: 264,000 bytes), which kernel C thins in device
+    memory: the word algebra still removes exactly the twin's pixels, each
+    image to its own fixpoint (the empty frame at once)."""
+    m = np.concatenate([_ridge_masks(6, 1, 1000, 1030),
+                        np.zeros((1, 1000, 1030), bool)])
+    m = torch.from_numpy(m)
+    np.testing.assert_array_equal(
+        zs_thin_words_plain(m, max_iters, True).numpy(),
+        zs_thin_plain(m, max_iters, True).numpy())
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_prune_endpoints_exact(iterations):
+    m = _ridge_masks(7, 2, 33, 41)
+    sk = J.skeletonize(jnp.asarray(m))
+    np.testing.assert_array_equal(
+        np.asarray(J.prune_endpoints(sk, iterations)),
+        T.prune_endpoints(torch.from_numpy(np.array(sk)), iterations).numpy())
 
 
 def test_words_plain_matches_bitpacked_interpret():
