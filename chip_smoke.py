@@ -1739,6 +1739,301 @@ def gallery_phase(dev, build, card, mesh) -> dict:
                 identify_batch_ms=batch_ms)
 
 
+# --- the SSL front: models, segmentation, run_all from a raw tree -------------
+
+SSL_FULL = dict(backbone_name="effnetv2_s", embedding_dim=756,
+                proj_hidden_dim=512, proj_output_dim=256)
+SSL_BATCHES = ((16, 20), (128, 5))      # (batch of 224x224, timed runs)
+SSL_CMP = 8                   # images run on the card and on the CPU
+# card vs CPU port, L2-normalised embeddings, float32 with TF32 off: the
+# two devices sum each convolution in their own order
+SSL_ATOL = 1e-4
+UNET_FULL = (64, 128, 256, 512, 1024)
+UNET_BATCHES = ((1, 20), (4, 10))       # (batch of 256x256, timed runs)
+UNET_PROB_ATOL = 1e-4         # sigmoid, card vs CPU port
+UNET_BAND = 1e-4              # masks may differ only this near 0.5
+RAW_SUBJECTS = 16             # PolyU-named JPEGs under DBII/, x 10
+RAW_NIST = 4                  # NIST-named PNGs under Nist/, x 2
+COASSIGN_MIN = 0.99           # id_clusters.csv, card vs CPU port
+
+
+def ssl_forward_phase(dev, card) -> dict:
+    """The full-width SSL model (seeded weights) through the port's
+    checkpoint writer and reader, bit-equal after it; img/s at batch 16 and
+    128 on 224x224 (CUDA events over synchronized runs after a warm-up) and
+    peak device memory; 8 images on the card against the port on the CPU
+    (both L2-normalised outputs within SSL_ATOL); ``entry()`` once."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.entry import entry
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        SSLModel, load_jax_variables, seed_weights, ssl_variables_from_state)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        load_msgpack, save_msgpack)
+    cpu_model = seed_weights(SSLModel(**SSL_FULL), 42).eval()
+    v = ssl_variables_from_state(cpu_model.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_msgpack(Path(tmp) / "ssl_model_final.msgpack",
+                            {"params": v["params"],
+                             "batch_stats": v["batch_stats"], "step": 0})
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        payload = load_msgpack(path)
+        t_read = time.perf_counter() - t0
+        mb = path.stat().st_size / 2 ** 20
+    model = load_jax_variables(SSLModel(**SSL_FULL), {
+        "params": payload["params"], "batch_stats": payload["batch_stats"]})
+    ref = cpu_model.state_dict()
+    differ = [k for k, t in model.state_dict().items()
+              if not torch.equal(t, ref[k])]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  checkpoint: {mb:.1f} MiB, {n_params} parameters, written in "
+          f"{t_write:.2f} s, read in {t_read:.2f} s; tensors that differ "
+          f"after the round trip {len(differ)} of {len(ref)}")
+    if differ:
+        fail(f"SSL checkpoint round trip changed {differ[:3]}")
+    model = model.to(dev).eval()
+    g = np.random.default_rng(0)
+    rates = {}
+    with torch.no_grad():
+        for batch, reps in SSL_BATCHES:
+            x = torch.from_numpy(g.random((batch, 224, 224), np.float32)).to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: model(x, return_embedding=True), reps)
+            peak = torch.cuda.max_memory_allocated()
+            rates[batch] = dict(ms=ms, img_s=batch * 1e3 / ms, peak_bytes=peak)
+            print(f"  batch {batch} x 224x224: {ms:.3f} ms a forward -> "
+                  f"{batch * 1e3 / ms:.1f} img/s, peak device memory "
+                  f"{peak / 2 ** 20:.1f} MiB ({card})")
+        x = torch.from_numpy(g.random((SSL_CMP, 224, 224), np.float32))
+        p_card, e_card = (t.cpu() for t in model(x.to(dev), return_embedding=True))
+        p_cpu, e_cpu = cpu_model(x, return_embedding=True)
+        unit = lambda t: t / t.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        err_p = float((unit(p_card) - unit(p_cpu)).abs().max())
+        err_e = float((e_card - e_cpu).abs().max())
+        print(f"  card vs CPU port, {SSL_CMP} images: L2-normalised predictor "
+              f"output max |d| {err_p:.3g}, backbone embedding {err_e:.3g} "
+              f"(bound {SSL_ATOL:g})")
+        if not (err_p <= SSL_ATOL and err_e <= SSL_ATOL):
+            fail("SSL forward: card and CPU port differ beyond the bound")
+        fn, (ex,) = entry()
+        out = fn(ex)
+        torch.cuda.synchronize()
+    print(f"  entry(): {tuple(out.shape)} on {out.device}, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    if out.shape != (8, 256) or not torch.isfinite(out).all():
+        fail("entry() output shape or values")
+    return dict(rates=rates, err_pred=err_p, err_emb=err_e,
+                checkpoint_mib=mb)
+
+
+def unet_phase(dev, card) -> dict:
+    """UNet++ at the config's filters (64 .. 1024): ms per 256x256 image at
+    batch 1 and 4, peak memory; 2 images on the card against the port on
+    the CPU (probabilities within UNET_PROB_ATOL, masks equal off the
+    UNET_BAND around 0.5); ``segment_images`` on the card over 4 files with
+    a checkpoint this phase writes (its output layer set so that a print's
+    logits have mean 0 and std 2: both classes occur)."""
+    import copy
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        NestedUNet, seed_weights, unet_variables_from_state)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
+        segmentation_infer)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import cvcompat
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        save_msgpack)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        encode_jpeg)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.io import (
+        read_image_grayscale)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        blob_prints)
+    prints = blob_prints([31, 32, 33, 34], None, 320, 240)
+    stacked = [np.stack([cvcompat.resize(p, (256, 256), cvcompat.INTER_AREA)] * 3)
+               for p in prints]
+    cpu_model = seed_weights(NestedUNet(UNET_FULL), 7).eval()
+    with torch.no_grad():
+        logits = cpu_model(torch.from_numpy(stacked[0][None]))
+        scale = 2.0 / logits.std()
+        cpu_model.Conv_0.weight *= scale
+        cpu_model.Conv_0.bias.copy_((cpu_model.Conv_0.bias - logits.mean()) * scale)
+    model = copy.deepcopy(cpu_model).to(dev)
+    g = np.random.default_rng(1)
+    rates = {}
+    with torch.no_grad():
+        for batch, reps in UNET_BATCHES:
+            x = torch.from_numpy(g.random((batch, 3, 256, 256), np.float32)).to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: model(x), reps)
+            peak = torch.cuda.max_memory_allocated()
+            rates[batch] = dict(ms_per_image=ms / batch, peak_bytes=peak)
+            print(f"  batch {batch} x 256x256: {ms / batch:.3f} ms an image, "
+                  f"peak device memory {peak / 2 ** 20:.1f} MiB ({card})")
+        x = torch.from_numpy(np.stack(stacked[:2]))
+        pc = torch.sigmoid(model(x.to(dev))).cpu()
+        pr = torch.sigmoid(cpu_model(x))
+    err = float((pc - pr).abs().max())
+    band = (pr - 0.5).abs() < UNET_BAND
+    off = int(((pc > 0.5) != (pr > 0.5))[~band].sum())
+    print(f"  card vs CPU port, 2 images: probabilities max |d| {err:.3g} "
+          f"(bound {UNET_PROB_ATOL:g}); mask pixels that differ off the "
+          f"{UNET_BAND:g} band {off}, pixels in the band {int(band.sum())}; "
+          f"foreground share {float((pr > 0.5).float().mean()):.3f}")
+    if err > UNET_PROB_ATOL or off:
+        fail("UNet++: card and CPU port differ beyond the bound")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for i, p in enumerate(prints):
+            (root / "in").mkdir(exist_ok=True)
+            (root / "in" / f"{i + 1}_1_1.jpg").write_bytes(
+                encode_jpeg(np.round(p * 255.0).astype(np.uint8)))
+        v = unet_variables_from_state(cpu_model.state_dict())
+        ckpt = save_msgpack(root / "best.msgpack", {
+            "params": v["params"], "batch_stats": v["batch_stats"],
+            "opt_state": None, "epoch": 0})
+        n, t_seg = wall_s(lambda: segmentation_infer.segment_images(
+            root / "in", root / "out", ckpt))
+        outs = sorted(p.name for p in (root / "out").iterdir())
+        mask = read_image_grayscale(root / "out" / "1_1_1_mask.png")
+        print(f"  segment_images (configs/config_segmentation.yml, on the "
+              f"card): {n} images in {t_seg:.2f} s, {len(outs)} files; "
+              f"first mask {mask.shape}, foreground {int((mask > 0).sum())}")
+        if n != 4 or len(outs) != 12 or mask.shape != (320, 240) or not (
+                0 < int((mask > 0).sum()) < mask.size):
+            fail("segment_images outputs")
+    return dict(rates=rates, prob_err=err, segment_s=t_seg)
+
+
+def coassignment(a: dict, b: dict) -> float:
+    """Share of file pairs that two labellings put together or apart
+    alike."""
+    import numpy as np
+    keys = sorted(a)
+    la = np.asarray([a[k] for k in keys])
+    lb = np.asarray([b[k] for k in keys])
+    same_a = la[:, None] == la[None, :]
+    same_b = lb[:, None] == lb[None, :]
+    iu = np.triu_indices(len(keys), 1)
+    return float((same_a == same_b)[iu].mean())
+
+
+def read_csv_labels(path) -> dict:
+    import csv
+    with open(path, newline="") as f:
+        return {r["path"]: int(r["cluster_label"]) for r in csv.DictReader(f)}
+
+
+def ssl_run_all_phase(dev, build, card) -> dict:
+    """``pipeline.run_all(skip_ssl=False, train=False, demo_matching=False)``
+    on the card from a raw tree: 16 subjects x 10 PolyU-named JPEGs under
+    ``DBII/`` and 4 x 2 NIST-named PNGs under ``Nist/``
+    (``tools/polyu_set.write_raw``), the shipped classifier config with its
+    paths in a temporary directory, and a checkpoint the phase writes.
+    Checks ``id_clusters.csv``, the id check, ``sorted_report.json``,
+    ``sorted_dataset/cluster_*`` holding every file once, the file stages'
+    counts and outputs, launches of every kernel, the EER bounds; then the
+    SSL step on the CPU port from the same files: co-assignment of the two
+    ``id_clusters.csv`` >= COASSIGN_MIN. Prints each stage's seconds."""
+    import os
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch import pipeline
+    from multimodal_biometric_fingerprints_palms_tpu_torch.classifier import (
+        pipeline as ssl_pipeline)
+    polyu_set, front = load_tool("polyu_set"), load_tool("ssl_front_port")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "dataset"
+        t0 = time.perf_counter()
+        files = polyu_set.write_raw(data, RAW_SUBJECTS, RAW_NIST)
+        cfg = front.classifier_config(root)
+        ckpt = front.write_checkpoint(cfg, seed=42)
+        t_setup = time.perf_counter() - t0
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+        os.chdir(root)
+        try:
+            res, t_all = wall_s(lambda: pipeline.run_all(
+                str(data), classifier_config=str(cfg), train=False,
+                demo_matching=False))
+        finally:
+            os.chdir(cwd)
+        launches = dict(build.LAUNCHES)
+        ssl, mat = res["ssl"], res["matching"]
+        save = root / "save_models"
+        card_labels = read_csv_labels(save / "id_clusters.csv")
+        n = len(files)
+        sorted_names = sorted(p.name for p in (data / "sorted_dataset").rglob("*")
+                              if p.is_file())
+        print(f"  {n} raw files written in {t_setup:.2f} s (with the "
+              f"checkpoint); run_all {t_all:.2f} s: {ssl['num_images']} "
+              f"embedded, {ssl['num_ids']} ids, clusters "
+              f"{ssl['clustering_report']['cluster_sizes']}, catalog rows "
+              f"{res['catalog_rows']}, minutiae {res['features']['num_images']}, "
+              f"{mat['num_users']} users")
+        checks = {
+            "id_clusters.csv rows": len(card_labels) == n,
+            "id consistency": res["id_consistency"]["ok"],
+            "sorted_report.json": (save / "sorted_report.json").is_file(),
+            "sorted_dataset holds every file once":
+                sorted_names == sorted(Path(r).name for r in files),
+            "stage counts": (res["catalog_rows"] == ssl["num_images"] == n
+                             == res["preprocessing"]["num_images"]
+                             == res["features"]["num_images"]),
+            "skeletons": len(list((data / "processed" / "enhanced").rglob(
+                "*_skeleton.jpg"))) == n,
+            "minutiae JSON": len(list((data / "processed" / "minutiae").rglob(
+                "*_minutiae.json"))) == n,
+            "logs": all((root / "logs" / f).is_file() for f in (
+                "minutiae_stats.csv", "genuine_match_stats.csv", "roc.png")),
+            "every kernel launched": all(v > 0 for v in launches.values()),
+        }
+        print("  checks: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                                       for k, v in checks.items()))
+        print(f"  launches over run_all: {launches}")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"run_all from a raw tree: {bad}")
+        g, imp = mat["genuine_scores"], mat["impostor_scores"]
+        gap = float(g.mean() - imp.mean())
+        print(f"  EER {mat['eer']:.4f} (<= 0.13), genuine mean {g.mean():.4f}, "
+              f"impostor mean {imp.mean():.4f}, gap {gap:.4f} (>= 0.3)")
+        if mat["eer"] > 0.13 or gap < 0.3:
+            fail("run_all from a raw tree: EER or gap outside the bounds")
+
+        cpu_root = root / "cpu"
+        cpu_root.mkdir()
+        cpu_cfg = front.classifier_config(cpu_root)
+        (cpu_root / "save_models").mkdir()
+        (cpu_root / "save_models" / ckpt.name).write_bytes(ckpt.read_bytes())
+        os.chdir(cpu_root)
+        try:
+            cpu_res, t_cpu = wall_s(lambda: ssl_pipeline.main(
+                str(cpu_cfg), ssl_pipeline.discover_dataset_dirs(data),
+                train=False, device="cpu"))
+        finally:
+            os.chdir(cwd)
+        cpu_labels = read_csv_labels(cpu_root / "save_models" / "id_clusters.csv")
+        agree = coassignment(card_labels, cpu_labels)
+        emb_err = float(np.abs(ssl["embeddings"] - cpu_res["embeddings"]).max())
+        print(f"  SSL step on the CPU port ({t_cpu:.2f} s): embeddings max |d| "
+              f"{emb_err:.3g}; id_clusters.csv co-assignment {agree:.4f} "
+              f"(>= {COASSIGN_MIN}); labels equal "
+              f"{card_labels == cpu_labels}")
+        if set(cpu_labels) != set(card_labels) or agree < COASSIGN_MIN:
+            fail("run_all from a raw tree: card and CPU clusterings disagree")
+    seconds = {**{f"ssl {k}": v for k, v in ssl["seconds"].items()},
+               **{k: v for k, v in res["seconds"].items() if k != "ssl"}}
+    print(f"  stage seconds on {card}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    return dict(run_all_s=t_all, seconds=seconds, launches=launches,
+                coassignment=agree, emb_err=emb_err, eer=mat["eer"])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2211,6 +2506,24 @@ def main() -> None:
     print("ops off the enhance path, card against the CPU port:")
     ops_phase(dev)
 
+    # 11. the SSL model at full width, its checkpoint, entry()
+    print("SSL forward (EfficientNetV2-S, 756 -> 512 -> 256, predictor on):")
+    ssl_fwd = ssl_forward_phase(dev, card)
+
+    # 12. UNet++ at the config's filters and segment_images
+    print("UNet++ (filters 64 .. 1024, 256x256) and segment_images:")
+    unet = unet_phase(dev, card)
+
+    # 13. run_all from a raw DBII/ + Nist/ tree, its kernel launches counted
+    # (set to 0 just before, read just after)
+    print("run_all(skip_ssl=False, train=False) from a raw tree:")
+    raw = ssl_run_all_phase(dev, build, card)
+    print(json.dumps({"ssl_front": {
+        "card": card, "ssl_forward": ssl_fwd, "unet": unet,
+        "run_all_raw": {k: raw[k] for k in ("run_all_s", "seconds",
+                                             "coassignment", "emb_err",
+                                             "eer")}}}))
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -2267,6 +2580,10 @@ def main() -> None:
     kernels[3]["gallery_launches"] = gal["launches"]
     # kernel C beyond one block's shared memory (the device-memory form)
     kernels[2]["large_frames"] = c_large
+    # launches of each kernel in run_all(skip_ssl=False) from a raw tree
+    for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
+                                    "binarize", "morph")):
+        k["ssl_run_all_launches"] = raw["launches"][counter]
     # launches of each kernel on the Gabor path (its counts set to 0 just
     # before it and read just after)
     for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",

@@ -18,8 +18,12 @@ screen) on the JAX package's accelerator route; and the file pipeline from
 images on disk to FRR/FAR/EER (``catalog``, ``preprocessing.runner``,
 ``features.runner``, ``matching.runner.main``,
 ``pipeline.run_all(skip_ssl=True)``) with the port's own image codec, YAML
-reader and CSV writer (``utils.image_codec``, ``config``). Entry points run
-on the card unless given ``device="cpu"``.
+reader and CSV writer (``utils.image_codec``, ``config``); the gallery; and
+the SSL front, serving only: the SSL model and UNet++ (``models``),
+clustering, the SSL pipeline and sorter (``classifier``), segmentation
+inference and ``pipeline.run_all(skip_ssl=False, train=False)``, over the
+JAX package's flax msgpack checkpoints (``utils.checkpoint``). Entry points
+run on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

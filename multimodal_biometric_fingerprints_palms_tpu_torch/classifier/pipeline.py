@@ -1,0 +1,199 @@
+"""SSL pipeline of the port (the JAX package's ``classifier/pipeline.py``),
+on the card unless given ``device="cpu"``:
+
+discover dataset/{DBII,Nist} -> load (or seed) the SSL model -> extract
+embeddings (npz cache) -> PCA -> kmeans or agglomerative clustering + JSON
+report -> per-ID mean embedding keyed {DBII|NIST}_{id} -> ID -> cluster via
+the sample nearest that mean -> ``id_clusters.csv`` (filename, path,
+global_id, cluster_label).
+
+Weights: ``<save_dir>/ssl_model_final.msgpack``, the JAX package's
+checkpoint format (``utils/checkpoint.py``), when it exists. Without one
+and with ``train=False`` the weights are seeded from ``ssl.dataset.seed``
+through an explicit ``torch.Generator`` with flax's initialisers
+(``models.seed_weights``: lecun normal kernels, zero biases, unit
+BatchNorm): flax's own draws cannot be
+reproduced without flax, so untrained embeddings, and the clusters built
+on them, differ from the JAX package's. ``train=True`` without a
+checkpoint raises: training is ``ROADMAP.md`` queue 1 item 4.
+
+The JAX pipeline draws an embedding scatter with scikit-learn and
+matplotlib inside a ``try``; neither is on the card's machine, so the port
+logs one warning naming ``ROADMAP.md`` queue 1 item 2 and writes no figure.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..clustering import (agglomerative_fast, evaluate_clustering, kmeans,
+                          pca_reduce)
+from ..config import load_classifier_config
+from ..models.convert import load_jax_variables
+from ..models.seeding import seed_weights
+from ..models.ssl_model import SSLModel
+from ..utils import threefry
+from ..utils.checkpoint import load_msgpack
+from ..utils.device import resolve_device
+from ..utils.logging import console_step, get_file_logger
+from .data import collect_image_paths, global_id_for
+from .embeddings import extract_embeddings
+
+logger = get_file_logger(__name__, "data/metadata/train.log")
+
+def build_model(cfg) -> SSLModel:
+    m = cfg.ssl.model
+    return SSLModel(
+        backbone_name=m.get("backbone", "effnetv2_s"),
+        embedding_dim=m.get("embedding_dim", 756),
+        proj_hidden_dim=m.get("projection_hidden_dim", 512),
+        proj_output_dim=m.get("projection_dim", 256),
+        proj_num_layers=m.get("projection_layers", 2),
+        use_predictor=m.get("use_predictor", True),
+    )
+
+
+def discover_dataset_dirs(base: str | Path) -> list[Path]:
+    """``base/DBII`` and ``base/Nist`` where they exist, else ``base``."""
+    base = Path(base)
+    dirs = [d for d in (base / "DBII", base / "Nist") if d.exists()]
+    return dirs or [base]
+
+
+def load_ssl_model(cfg, save_dir: Path, train: bool, device) -> SSLModel:
+    """The SSL model on ``device`` with the checkpoint's weights, or seeded
+    ones (``train=False``); raises for training."""
+    model = build_model(cfg)
+    final_ckpt = save_dir / "ssl_model_final.msgpack"
+    if final_ckpt.exists():
+        console_step("Loading existing SSL checkpoint")
+        payload = load_msgpack(final_ckpt)
+        load_jax_variables(model, {"params": payload["params"],
+                                   "batch_stats": payload["batch_stats"]})
+    elif train:
+        raise NotImplementedError(
+            f"no SSL checkpoint at {final_ckpt}, and SSL training is not "
+            "ported yet: ROADMAP.md queue 1, item 4 (training); pass "
+            "train=False to run with seeded weights")
+    else:
+        console_step("No SSL checkpoint: seeded weights (not trained)")
+        seed_weights(model, int(cfg.ssl.dataset.get("seed", 42)))
+    return model.to(device).eval()
+
+
+def main(config_path: str | None = None, dataset_dirs=None,
+         train: bool = True, mesh=None, device=None) -> dict:
+    """Run the SSL pipeline on ``device`` (default: the card). Returns the
+    JAX function's keys, and under ``seconds`` each step's wall time."""
+    device = resolve_device(device, "the SSL pipeline")
+    del mesh        # configures data-parallel training (queue 1, item 4)
+    cfg = load_classifier_config(config_path)
+    save_dir = Path(cfg.paths.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    seconds: dict = {}
+    clock = time.perf_counter()
+
+    def lap(step):
+        nonlocal clock
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        seconds[step] = now - clock
+        clock = now
+
+    if dataset_dirs is None:
+        dataset_dirs = discover_dataset_dirs(cfg.paths.dataset_dir)
+    paths = collect_image_paths(dataset_dirs)
+    if not paths:
+        raise FileNotFoundError(f"no images under {dataset_dirs}")
+    console_step(f"SSL pipeline: {len(paths)} images")
+
+    dcfg = cfg.ssl.dataset
+    image_size = dcfg.get("image_size", 224)
+    batch_size = dcfg.get("batch_size", 16)
+    seed = int(dcfg.get("seed", 42))
+    model = load_ssl_model(cfg, save_dir, train, device)
+    lap("model")
+
+    console_step("Extracting embeddings")
+    embed_s: dict = {}
+    embeddings, kept_paths = extract_embeddings(
+        model, paths, batch_size=batch_size, image_size=image_size,
+        cache_file=save_dir / "embeddings.npz", seconds=embed_s)
+    print(f"embeddings: {embeddings.shape}")
+    lap("embeddings")
+    seconds.update({f"embeddings {k}": v for k, v in embed_s.items()})
+
+    console_step("Clustering")
+    ccfg = cfg.ssl.clustering
+    n_clusters = ccfg.get("n_clusters", 8)
+    x = torch.from_numpy(np.asarray(embeddings, np.float32)).to(device)
+    pca_dim = ccfg.get("pca_dim", 100)
+    if pca_dim and x.shape[1] > pca_dim and x.shape[0] > pca_dim:
+        x, _, _ = pca_reduce(x, pca_dim, device=device)
+    lap("pca")
+    method = ccfg.get("method", "kmeans")
+    if method == "agglomerative":
+        labels = agglomerative_fast(threefry.key(seed), x, n_clusters,
+                                    device=device)
+        inertia = None
+    else:
+        labels, _, inertia = kmeans(threefry.key(seed), x, n_clusters,
+                                    device=device)
+        inertia = float(inertia)
+    labels = labels.cpu().numpy()
+    lap("cluster")
+    report = evaluate_clustering(x, labels, n_clusters, device=device)
+    report["inertia"] = inertia
+    report["method"] = method
+    with open(save_dir / "clustering_report_detailed.json", "w") as f:
+        json.dump(report, f, indent=2)
+    logger.warning("embedding scatter not drawn: scikit-learn and matplotlib "
+                   "are not ported (ROADMAP.md queue 1, item 2)")
+    lap("report")
+
+    console_step("Per-ID aggregation")
+    id_to_embeddings = defaultdict(list)
+    id_to_filenames = defaultdict(list)
+    for emb, fname in zip(embeddings, kept_paths):
+        gid = global_id_for(fname)
+        id_to_embeddings[gid].append(emb)
+        id_to_filenames[gid].append(fname)
+
+    id_list = list(id_to_embeddings)
+    id_labels = []
+    for gid in id_list:
+        mean_emb = np.mean(np.stack(id_to_embeddings[gid]), axis=0)
+        dists = np.linalg.norm(embeddings - mean_emb, axis=1)
+        id_labels.append(int(labels[int(np.argmin(dists))]))
+
+    csv_path = save_dir / "id_clusters.csv"
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["filename", "path", "global_id", "cluster_label"])
+        for gid, cl in zip(id_list, id_labels):
+            for full in id_to_filenames[gid]:
+                writer.writerow([Path(full).name, full, gid, cl])
+    console_step(f"id_clusters.csv written: {len(id_list)} ids")
+    lap("csv")
+
+    return {
+        "num_images": len(kept_paths),
+        "num_ids": len(id_list),
+        "embeddings": embeddings,
+        "labels": labels,
+        "clustering_report": report,
+        "csv_path": str(csv_path),
+        "seconds": seconds,
+    }
+
+
+if __name__ == "__main__":
+    main()

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..features.minutiae import MinutiaeSet
-from . import threefry
+from ..utils import threefry
 
 _BIG = 1e9
 

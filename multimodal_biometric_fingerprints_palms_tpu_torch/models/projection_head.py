@@ -1,0 +1,74 @@
+"""SimCLR/BYOL projection head of the port (the JAX package's
+``models/projection_head.py``): weight-normalised linear layers +
+BatchNorm + ReLU + dropout 0.1, residual iff the input and output widths
+match, L2-normalised output.
+
+``WeightNormDense`` keeps the JAX parameters ``v`` (in, out), ``g`` (out,)
+and ``bias`` and computes ``w = v * (g / max(||v||, 1e-12))`` with the
+norm over the input axis. ``torch.nn.utils.parametrizations.weight_norm``
+is not used: it has no clamp.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def l2_normalize(y: torch.Tensor) -> torch.Tensor:
+    return y / torch.clamp(torch.linalg.vector_norm(y, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+class WeightNormDense(nn.Module):
+    """Dense layer with weight normalization (w = g * v / ||v||)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.v = nn.Parameter(torch.empty(in_features, features))
+        self.g = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        nn.init.kaiming_normal_(self.v.T, nonlinearity="linear")
+
+    def forward(self, x):
+        norm = torch.linalg.vector_norm(self.v, dim=0)
+        w = self.v * (self.g / torch.clamp(norm, min=1e-12))
+        y = x @ w
+        return y + self.bias if self.bias is not None else y
+
+
+def batch_norm1d(ch: int) -> nn.BatchNorm1d:
+    return nn.BatchNorm1d(ch, eps=1e-5, momentum=0.01)
+
+
+class ProjectionHead(nn.Module):
+    def __init__(self, input_dim: int, hidden_dim: int = 512,
+                 output_dim: int = 256, num_layers: int = 2,
+                 dropout: float = 0.1, use_residual: bool = True):
+        super().__init__()
+        if num_layers < 1:
+            raise ValueError("num_layers must be >= 1")
+        self.num_layers = num_layers
+        self.residual = use_residual and input_dim == output_dim
+        self.dropout = nn.Dropout(dropout)
+        if num_layers == 1:
+            self.Dense_0 = nn.Linear(input_dim, output_dim)
+            return
+        widths = [input_dim] + [hidden_dim] * (num_layers - 1)
+        for i in range(num_layers - 1):
+            self.add_module(f"WeightNormDense_{i}",
+                            WeightNormDense(widths[i], hidden_dim))
+            self.add_module(f"BatchNorm_{i}", batch_norm1d(hidden_dim))
+        self.Dense_0 = nn.Linear(hidden_dim, output_dim)
+
+    def forward(self, x):
+        y = x
+        for i in range(self.num_layers - 1):
+            y = getattr(self, f"WeightNormDense_{i}")(y)
+            y = F.relu(getattr(self, f"BatchNorm_{i}")(y))
+            y = self.dropout(y)
+        y = self.Dense_0(y)
+        if self.residual:
+            y = y + x
+        return l2_normalize(y)

@@ -3,6 +3,8 @@ another device."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,19 @@ def resolve_device(device=None, what: str = "this entry point") -> torch.device:
             f"{what} runs on a CUDA device by default and CUDA is not "
             "available; pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 convolutions and matrix products without TF32 inside the
+    block, as the JAX package computes them; restores the settings after.
+    cuDNN takes TF32 for float32 convolutions by default on Hopper."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

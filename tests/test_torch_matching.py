@@ -45,7 +45,8 @@ from multimodal_biometric_fingerprints_palms_tpu_torch.evaluation import (
 from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
     MinutiaeSet as TSet, minutiae_from_numpy)
 from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
-    cuda_match as tcm, dataset as tds, ransac as tr, runner as trun, threefry)
+    cuda_match as tcm, dataset as tds, ransac as tr, runner as trun)
+from multimodal_biometric_fingerprints_palms_tpu_torch.utils import threefry
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils import io as tio
 
 torch.set_num_threads(1)

@@ -24,6 +24,7 @@ from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
     cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
     denoise)
+from multimodal_biometric_fingerprints_palms_tpu_torch.utils import threefry
 
 torch.set_num_threads(1)
 
@@ -31,7 +32,8 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = "multimodal_biometric_fingerprints_palms_tpu"
 PORT_PKG = "multimodal_biometric_fingerprints_palms_tpu_torch"
 # what neither the port nor the scripts that run it on the card may import
-FORBIDDEN = ("jax", "cv2", "PIL", "yaml", "pandas", "matplotlib", JAX_PKG)
+FORBIDDEN = ("jax", "flax", "msgpack", "cv2", "PIL", "yaml", "pandas",
+             "matplotlib", "sklearn", JAX_PKG)
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__init__.py")
@@ -99,6 +101,18 @@ SLICE = {
                              "run_preprocessing", "main"],
     "features.runner": ["_overlay", "process_directory", "main"],
     "pipeline": ["run_all"],
+    "classifier.data": ["collect_image_paths", "extract_id", "global_id_for",
+                        "local_contrast_normalization",
+                        "estimate_dominant_orientation", "preprocess_image"],
+    "classifier.pipeline": ["build_model", "main"],
+    "classifier.sorter": ["main"],
+    "clustering.kmeans": ["kmeans_plus_plus_init", "kmeans"],
+    "clustering.pca": ["pca_reduce"],
+    "clustering.agglomerative": ["agglomerative_fast"],
+    "clustering.metrics": ["silhouette_score_cosine", "davies_bouldin_index",
+                           "calinski_harabasz_index", "evaluate_clustering"],
+    "preprocessing.segmentation_infer": ["load_model", "segment_images"],
+    "utils.checkpoint": ["save_msgpack"],
     "parallel.mesh": ["create_mesh", "gallery_sharding", "replicated"],
     "parallel.gallery": ["shard_gallery", "pad_gallery", "all_pairs_scores",
                          "take_templates", "shard_pairs_scores",
@@ -107,7 +121,12 @@ SLICE = {
                          "identify", "identify_batch"],
 }
 # Not listed: ``catalog.save_catalog`` takes the records ``scan_dataset``
-# returns (a list of dicts) where the JAX package's takes a DataFrame;
+# returns (a list of dicts) where the JAX package's takes a DataFrame, and
+# so do the sorter's ``copy_files_to_clusters`` and ``compute_purity``
+# (``rows``); ``classifier.extract_embeddings`` has no ``variables`` (the
+# port's model holds its weights) and takes a ``seconds`` dict;
+# ``utils.checkpoint.load_msgpack`` takes no template (``models.
+# load_jax_variables`` holds the tree to the model);
 # ``utils.profiling``'s ``stage_timer`` defaults to its own module's logger
 # and ``device_trace`` writes a torch.profiler trace to its own directory.
 # Functions the port keeps in another module: the matcher's batch entry
@@ -308,6 +327,121 @@ def test_runners_default_to_the_card_and_raise_without_one(entry, tmp_path,
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(*first, device=device, **kwargs)
     assert not any(tmp_path.iterdir())        # raised before any work
+
+
+def _ssl_config(tmp_path) -> Path:
+    """A classifier config over ``tmp_path`` (tiny model, no checkpoint)
+    and a 2-image DBII tree."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        encode_png)
+    d = tmp_path / "dataset" / "DBII"
+    d.mkdir(parents=True)
+    for name in ("1_1_1.png", "2_1_1.png"):
+        (d / name).write_bytes(encode_png(np.full((96, 96), 90, np.uint8)))
+    cfg = tmp_path / "classifier.yml"
+    cfg.write_text(
+        f"paths:\n  root_dir: {tmp_path}\n  dataset_dir: ./dataset\n"
+        "  save_dir: ./save_models\n"
+        "ssl:\n  dataset:\n    batch_size: 2\n    seed: 0\n    image_size: 64\n"
+        "  model:\n    backbone: effnetv2_tiny\n    embedding_dim: 16\n"
+        "    projection_hidden_dim: 16\n    projection_dim: 8\n"
+        "  clustering:\n    n_clusters: 2\n    pca_dim: 0\n")
+    return cfg
+
+
+def test_run_all_sorts_into_the_dataset_dir(tmp_path, monkeypatch):
+    """A fault of the JAX package's ``run_all`` the port does not copy: its
+    SSL step reads the config's ``dataset_dir`` and its sorter writes the
+    working directory's ``dataset/sorted_dataset``. The port's ``run_all`` reads
+    ``<dataset_dir>/{DBII,Nist}``, sorts into ``<dataset_dir>/
+    sorted_dataset`` (a directory outside the working directory here) and
+    keeps its reports in the config's ``save_dir``."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.pipeline import run_all
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        encode_jpeg)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        blob_prints)
+    cfg = _ssl_config(tmp_path)          # its dataset_dir: tmp_path/dataset
+    raw = tmp_path / "elsewhere"
+    (raw / "DBII").mkdir(parents=True)
+    for s, phase in ((1, 0.0), (1, 0.06), (2, 0.0), (2, 0.06)):
+        img = blob_prints([10 + s], [phase], 320, 240)[0]
+        (raw / "DBII" / f"{s}_{1 + int(phase > 0)}_1.jpg").write_bytes(
+            encode_jpeg(np.round(img * 255.0).astype(np.uint8)))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    res = run_all(str(raw), classifier_config=str(cfg), train=False,
+                  device="cpu")
+    assert res["ssl"]["num_images"] == 4 and res["id_consistency"]["ok"]
+    sorted_names = sorted(p.name for p in (raw / "sorted_dataset").rglob("*.jpg"))
+    assert sorted_names == sorted(p.name for p in (raw / "DBII").iterdir())
+    assert res["catalog_rows"] == 4 == res["features"]["num_images"]
+    save = tmp_path / "save_models"
+    assert (save / "sorted_report.json").is_file()
+    assert (save / "id_clusters.csv").is_file()
+    # (the features runner's log goes to ./dataset/processed/minutiae, as
+    # the JAX runner's does)
+    assert not (work / "dataset" / "sorted_dataset").exists()
+    assert not (work / "save_models").exists()
+    assert set(res["seconds"]) >= {"ssl", "sorter", "catalog", "matching"}
+
+
+@pytest.mark.parametrize("entry", [
+    "classifier.pipeline.main", "classifier.sorter.main",
+    "preprocessing.segmentation_infer.segment_images",
+    "preprocessing.segmentation_infer.load_model", "entry.entry",
+    "clustering.kmeans.kmeans_plus_plus_init", "clustering.kmeans.kmeans",
+    "clustering.pca.pca_reduce", "clustering.agglomerative.agglomerative_fast",
+    "clustering.metrics.silhouette_score_cosine",
+    "clustering.metrics.davies_bouldin_index",
+    "clustering.metrics.calinski_harabasz_index",
+    "clustering.metrics.evaluate_clustering"])
+def test_ssl_front_defaults_to_the_card_and_raises_without_one(
+        entry, tmp_path, monkeypatch):
+    """The SSL front's entry points run on the card unless the caller asks
+    for the CPU: ``device`` is their last parameter, None by default, and
+    without CUDA they raise before any work."""
+    module, name = entry.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"{PORT_PKG}.{module}"), name)
+    params = inspect.signature(fn).parameters
+    assert list(params)[-1] == "device" and params["device"].default is None
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)
+    cfg = _ssl_config(tmp_path)
+    key, x, labels = (threefry.key(0), np.zeros((4, 2), np.float32),
+                      np.zeros(4, np.int64))
+    before = sorted(tmp_path.rglob("*"))
+    args = {"classifier.pipeline.main": (str(cfg),),
+            "classifier.sorter.main": (tmp_path / "none.csv",),
+            "preprocessing.segmentation_infer.segment_images": (
+                tmp_path, tmp_path / "out", tmp_path / "none.msgpack"),
+            "preprocessing.segmentation_infer.load_model": (
+                {}, tmp_path / "none.msgpack"),
+            "entry.entry": (),
+            "clustering.kmeans.kmeans_plus_plus_init": (key, x, 2),
+            "clustering.kmeans.kmeans": (key, x, 2),
+            "clustering.pca.pca_reduce": (x, 1),
+            "clustering.agglomerative.agglomerative_fast": (key, x, 2),
+            "clustering.metrics.silhouette_score_cosine": (x, labels, 2),
+            "clustering.metrics.davies_bouldin_index": (x, labels, 2),
+            "clustering.metrics.calinski_harabasz_index": (x, labels, 2),
+            "clustering.metrics.evaluate_clustering": (x, labels, 2)}[entry]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(*args, device=device)
+    assert sorted(tmp_path.rglob("*")) == before       # raised before any work
+
+
+def test_resolve_device_is_the_only_route_to_the_cpu():
+    """No module of the port but ``utils/device.py`` (and the profiler's
+    trace helper, which only chooses what to trace) asks whether CUDA is
+    there: nothing falls back to the CPU on its own."""
+    asking = sorted(str(p.relative_to(ROOT / PORT_PKG))
+                    for p in (ROOT / PORT_PKG).rglob("*.py")
+                    if "cuda.is_available" in p.read_text())
+    assert asking == ["utils/device.py", "utils/profiling.py"]
 
 
 @pytest.mark.parametrize("module", sorted(SLICE))

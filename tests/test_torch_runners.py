@@ -187,6 +187,26 @@ def test_run_all_skip_ssl_end_to_end(trees):
         assert (root / "logs" / name).is_file()
 
 
-def test_run_all_without_skip_ssl_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, items 3 and 4"):
-        pipeline.run_all("nowhere", device="cpu")
+def test_run_all_without_skip_ssl_raises(tmp_path, monkeypatch):
+    """The SSL branch runs but does not train: with the default
+    ``train=True`` and no SSL checkpoint, ``run_all`` raises, naming ROADMAP
+    queue 1 item 4, before it writes a CSV or sorts anything."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        encode_png)
+    d = tmp_path / "dataset" / "DBII"
+    d.mkdir(parents=True)
+    for name in ("1_1_1.png", "2_1_1.png"):
+        (d / name).write_bytes(encode_png(np.full((96, 96), 90, np.uint8)))
+    cfg = tmp_path / "classifier.yml"
+    cfg.write_text(
+        f"paths:\n  root_dir: {tmp_path}\n  save_dir: ./save_models\n"
+        "ssl:\n  dataset:\n    batch_size: 2\n    image_size: 64\n"
+        "  model:\n    backbone: effnetv2_tiny\n    embedding_dim: 16\n"
+        "    projection_hidden_dim: 16\n    projection_dim: 8\n"
+        "  clustering:\n    n_clusters: 2\n    pca_dim: 0\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        pipeline.run_all(str(tmp_path / "dataset"), classifier_config=str(cfg),
+                         device="cpu")
+    assert not (tmp_path / "save_models" / "id_clusters.csv").exists()
+    assert not (tmp_path / "dataset" / "sorted_dataset").exists()
