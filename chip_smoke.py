@@ -56,6 +56,14 @@ and drives the port's paths on the card:
   CPU port) and the blob protocol with Gabor on;
 - the ops off the enhance path (geometry, greyscale morphology, the
   bilateral filter, equalization, the spur trim), card against CPU port.
+- training (no kernel: convolutions and products go to cuDNN and
+  cuBLAS): the full-width SSL model through ``train_ssl`` on host views
+  and the device-view step and ``train_ssl_device`` on 1,480 uint8 images
+  of 320x240 (ms a step, views/s, host view ms, peak memory; step 0 moves
+  no weight; two steps card against CPU port; the checkpoint read back),
+  UNet++ through ``train_from_config`` on masks the preprocessing runner
+  wrote, with a resume from ``last.msgpack``, and
+  ``run_all(skip_ssl=False, train=True)`` from a raw tree to EER.
 
 Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
 pandas or matplotlib). Prints the card's name and
@@ -2034,6 +2042,468 @@ def ssl_run_all_phase(dev, build, card) -> dict:
                 coassignment=agree, emb_err=emb_err, eer=mat["eer"])
 
 
+# --- training: SSL (host and device views), UNet++, run_all(train=True) -------
+
+TRAIN_STEPS = 8               # timed SSL steps a path, after one warm-up step
+TRAIN_SET = (1480, 320, 240)  # the device-resident uint8 set (tools/polyu_set.py)
+TRAIN_FILES = 16              # subjects x 10 JPEGs the host views read
+TRAIN_CMP_STEPS = 2           # SSL steps on the card and on the CPU port
+TRAIN_LOSS_ATOL = 1e-4        # card vs CPU port after two steps
+TRAIN_STATS_ATOL = 1e-4
+TRAIN_MOMENT_RTOL = 1e-3      # ||card - CPU|| / ||CPU|| of Adam's mu and nu
+TRAIN_MOVE_RTOL = 1e-2        # the same of the parameters' moves
+TRAIN_VIEW_ATOL = 1e-6        # device_views, card vs CPU (erfinv's last place)
+SEG_SUBJECTS = 4              # x 10 image/mask pairs (masks by the runner)
+SEG_EPOCHS = 2
+
+
+def _ssl_cfg(root: Path, **training):
+    """The shipped classifier config with its paths under ``root`` and
+    ``ssl.training`` keys replaced."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.config import (
+        load_classifier_config)
+    path = load_tool("ssl_front_port").classifier_config(root)
+    text = path.read_text()
+    for key, value in training.items():
+        old = next(line for line in text.splitlines()
+                   if line.strip().startswith(f"{key}:"))
+        text = text.replace(old + "\n", f"    {key}: {value}\n")
+    path.write_text(text)
+    return path, load_classifier_config(path)
+
+
+def _param_snapshot(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def ssl_train_phase(dev, card) -> dict:
+    """(a) The SSL model at full width on ``configs/config_classifier.yml``
+    (lr 1e-5, warmup as configured): ``train_ssl`` for 8 steps on
+    ``two_view_batches`` over PolyU-shaped JPEGs (a wrapper of the batch
+    iterator times each step and the host's view rendering, and sees the
+    weights between steps: step 0 moves none, step 1 some), then
+    ``train_ssl_device``'s step on a device-resident uint8 set of 1,480
+    images of 320x240 (one warm-up step, 8 timed, synchronized), and the
+    trainer itself for one epoch of that set; peak device memory;
+    ``device_views`` on the card against the same call on the CPU (the
+    noise's bits equal, the views within an ulp-level bound); two steps on
+    the card against the CPU port from the same weights and views (loss,
+    running statistics, Adam's moments and the parameters' moves); the
+    card's final checkpoint read back tensor by tensor."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.classifier import (
+        data as cdata)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.classifier.pipeline import (
+        build_model)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        load_jax_variables, seed_weights, ssl_variables_from_state)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.train import (
+        ssl_train)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.train.optim import (
+        ClipAdamW)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.train.schedule import (
+        cosine_warmup_schedule)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import threefry
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        load_msgpack)
+    polyu_set = load_tool("polyu_set")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _, cfg = _ssl_cfg(root)
+        t, dcfg = cfg.ssl.training, cfg.ssl.dataset
+        tcfg = {k: t.get(k) for k in ("lr", "epochs", "warmup_epochs",
+                                      "weight_decay", "grad_clip",
+                                      "temperature")}
+        lr, batch = float(tcfg["lr"]), int(dcfg.get("batch_size"))
+        size, seed = int(dcfg.get("image_size")), int(dcfg.get("seed"))
+        files = sorted(polyu_set.write_raw(root / "dataset", TRAIN_FILES))
+        paths = cdata.collect_image_paths([root / "dataset" / "DBII"])
+        spe = len(paths) // batch
+        print(f"  config: lr {lr:g}, batch {batch}, {size}x{size}, warmup "
+              f"{tcfg["warmup_epochs"]} epochs, {tcfg["epochs"]} epochs; "
+              f"{len(files)} JPEGs")
+
+        # host views through the real trainer, 8 steps
+        model = build_model(cfg)
+        marks, seen = [], {}
+
+        def batches():
+            it = cdata.two_view_batches(paths, batch, size, seed=seed + 1)
+            for k in range(TRAIN_STEPS + 1):
+                if k <= 2:
+                    seen[k - 1] = _param_snapshot(model)
+                t0 = time.perf_counter()
+                pair = next(it)
+                marks.append((t0, time.perf_counter()))
+                yield pair
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), None))
+
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = ssl_train.train_ssl(
+            model, batches, spe, epochs=1, lr=lr,
+            weight_decay=tcfg["weight_decay"], grad_clip=tcfg["grad_clip"],
+            warmup_epochs=tcfg["warmup_epochs"], temperature=tcfg["temperature"],
+            input_shape=(size, size), seed=seed, save_dir=root / "save",
+            device=dev)
+        host_peak = torch.cuda.max_memory_allocated()
+        views_ms = [1e3 * (b - a) for a, b in marks[:-1]]
+        steps_ms = [1e3 * (marks[k + 1][0] - marks[k][1])
+                    for k in range(len(marks) - 1)]
+        moved0 = sum(int((a != b).sum()) for a, b in zip(seen[-1], seen[0]))
+        moved1 = sum(int((a != b).sum()) for a, b in zip(seen[0], seen[1]))
+        n_par = sum(p.numel() for p in model.parameters())
+        host_step = float(np.mean(steps_ms[1:]))
+        host_views = float(np.mean(views_ms[1:]))
+        print(f"  train_ssl (host views), {TRAIN_STEPS + 1} steps: loss "
+              f"{hist[0]:.4f}; step {host_step:.2f} ms after one warm-up "
+              f"(device, synchronized by the loss read), host views "
+              f"{host_views:.2f} ms a step -> "
+              f"{2 * batch * 1e3 / (host_step + host_views):.1f} views/s end "
+              f"to end; peak {host_peak / 2 ** 20:.1f} MiB ({card})")
+        print(f"  weights moved by step 0 (lr 0): {moved0} of {n_par}; by "
+              f"step 1: {moved1}")
+        final = load_msgpack(root / "save" / "ssl_model_final.msgpack")
+        back = load_jax_variables(build_model(cfg), {
+            "params": final["params"], "batch_stats": final["batch_stats"]})
+        ref = {k: t.cpu() for k, t in model.state_dict().items()}
+        differ = [k for k, t in back.state_dict().items()
+                  if not k.endswith("num_batches_tracked")
+                  and not torch.equal(t, ref[k])]
+        print(f"  checkpoint written on the card: step {final['step']}, "
+              f"tensors that differ read back {len(differ)}")
+        if (not all(np.isfinite(hist)) or moved0 or not moved1 or differ
+                or final["step"] != TRAIN_STEPS + 1):
+            fail("SSL training on host views: loss, step-0/1 weights or "
+                 "checkpoint")
+        out["host"] = dict(step_ms=host_step, views_ms=host_views,
+                           views_s=2 * batch * 1e3 / (host_step + host_views),
+                           peak_bytes=host_peak, loss=hist[0],
+                           moved_step0=moved0, moved_step1=moved1)
+
+        # device views: the trainer's step timed, then its epoch
+        n, h, w = TRAIN_SET
+        subjects = n // 10
+        from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+            blob_prints)
+        data = np.concatenate([np.round(blob_prints(
+            [10 + s] * 10, [0.06 * k for k in range(10)], h, w) * 255.0
+        ).astype(np.uint8) for s in range(1, subjects + 1)])
+        model = build_model(cfg).to(dev)
+        tx = ClipAdamW(tcfg["grad_clip"], cosine_warmup_schedule(
+            lr, tcfg["warmup_epochs"] * (n // batch), tcfg["epochs"] * (n // batch)),
+            tcfg["weight_decay"])
+        rng = threefry.key(seed)
+        st = ssl_train.init_ssl_state(model, rng, (size, size), tx)
+        step = ssl_train.create_ssl_train_step(model, tx, tcfg["temperature"])
+        torch.cuda.reset_peak_memory_stats()
+        data_dev, t_up = wall_s(lambda: torch.from_numpy(data).to(dev))
+        order = np.random.default_rng(seed).permutation(n)
+        views_t, step_t, losses = [], [], []
+        for b in range(TRAIN_STEPS + 1):
+            idx = torch.from_numpy(order[b * batch:(b + 1) * batch]).to(dev)
+            rng, sub = threefry.split(rng)
+            (xi, xj), tv = wall_s(lambda: ssl_train.device_views(
+                data_dev, idx, sub, size))
+            (st, loss), ts = wall_s(lambda: step(st, xi, xj,
+                                                 threefry.fold_in(sub, 2)))
+            views_t.append(tv)
+            step_t.append(ts)
+            losses.append(float(loss))
+        dev_peak = torch.cuda.max_memory_allocated()
+        dev_step = 1e3 * float(np.mean(step_t[1:]))
+        dev_views = 1e3 * float(np.mean(views_t[1:]))
+        print(f"  device views: {n} x {h}x{w} uint8 ({data.nbytes / 1e6:.1f} "
+              f"MB) to the card in {t_up * 1e3:.1f} ms; step {dev_step:.2f} ms, "
+              f"views {dev_views:.2f} ms on the card a step -> "
+              f"{2 * batch * 1e3 / (dev_step + dev_views):.1f} views/s; peak "
+              f"{dev_peak / 2 ** 20:.1f} MiB; losses {losses[0]:.4f} .. "
+              f"{losses[-1]:.4f}")
+        del data_dev
+        model = build_model(cfg)
+        (_, dhist), t_epoch = wall_s(lambda: ssl_train.train_ssl_device(
+            model, data, batch, epochs=1, lr=lr,
+            weight_decay=tcfg["weight_decay"], grad_clip=tcfg["grad_clip"],
+            warmup_epochs=tcfg["warmup_epochs"], temperature=tcfg["temperature"],
+            image_size=size, seed=seed, save_dir=root / "save_dev",
+            device=dev))
+        print(f"  train_ssl_device, one epoch ({n // batch} steps): "
+              f"{t_epoch:.2f} s, {t_epoch * 1e3 / (n // batch):.2f} ms a step, "
+              f"loss {dhist[0]:.4f}")
+        if not (all(np.isfinite(losses)) and np.isfinite(dhist[0])):
+            fail("SSL training on device views: loss not finite")
+        out["device"] = dict(step_ms=dev_step, views_ms=dev_views,
+                             views_s=2 * batch * 1e3 / (dev_step + dev_views),
+                             peak_bytes=dev_peak, upload_s=t_up,
+                             epoch_s=t_epoch, epoch_steps=n // batch,
+                             loss=dhist[0])
+
+        # device_views on the card against the same call on a CPU copy
+        from multimodal_biometric_fingerprints_palms_tpu_torch.classifier import (
+            augment_device)
+        idx = order[:batch]
+        sub = threefry.split(threefry.key(seed))[1]
+        on_card = ssl_train.device_views(torch.from_numpy(data).to(dev),
+                                         torch.from_numpy(idx).to(dev), sub,
+                                         size)
+        on_cpu = ssl_train.device_views(torch.from_numpy(data),
+                                        torch.from_numpy(idx), sub, size)
+        view_d = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(on_card, on_cpu))
+        bits_equal = all(torch.equal(
+            threefry.random_bits_tensor(keys, size * size, dev).cpu(),
+            threefry.random_bits_tensor(keys, size * size, "cpu"))
+            for keys in (augment_device.draws(threefry.fold_in(sub, v), batch,
+                                              h, w, size)["noise_keys"]
+                         for v in (0, 1)))
+        print(f"  device_views, card vs CPU, {batch} images: noise bits equal "
+              f"{bits_equal}; views max |d| {view_d:.3g} (bound "
+              f"{TRAIN_VIEW_ATOL:g})")
+        if not (bits_equal and view_d <= TRAIN_VIEW_ATOL):
+            fail("device_views: the card and the CPU port differ")
+
+        # card vs CPU port: two steps from the same weights and views
+        g = np.random.default_rng(3)
+        cpu_model = seed_weights(build_model(cfg), seed)
+        card_model = build_model(cfg)
+        card_model.load_state_dict(cpu_model.state_dict())
+        card_model.to(dev)
+        start = _param_snapshot(cpu_model)
+        tx_c, tx_g = (ClipAdamW(tcfg["grad_clip"], cosine_warmup_schedule(
+            lr, 1, 8), tcfg["weight_decay"]) for _ in range(2))
+        sc = ssl_train.SSLTrainState({}, {}, tx_c.init(list(cpu_model.parameters())), 0)
+        sg = ssl_train.SSLTrainState({}, {}, tx_g.init(list(card_model.parameters())), 0)
+        step_c = ssl_train.create_ssl_train_step(cpu_model, tx_c)
+        step_g = ssl_train.create_ssl_train_step(card_model, tx_g)
+        rng = threefry.key(5)
+        loss_d = 0.0
+        for _ in range(TRAIN_CMP_STEPS):
+            xi, xj = (torch.from_numpy(g.random((batch, size, size), np.float32))
+                      for _ in range(2))
+            rng, sub = threefry.split(rng)
+            sc, lc = step_c(sc, xi, xj, sub)
+            sg, lg = step_g(sg, xi.to(dev), xj.to(dev), sub)
+            loss_d = max(loss_d, abs(float(lc) - float(lg)))
+        vc = ssl_variables_from_state(cpu_model.state_dict())
+        vg = ssl_variables_from_state(card_model.state_dict())
+
+        def tree_max(a, b):
+            if isinstance(a, dict):
+                return max(tree_max(a[k], b[k]) for k in a)
+            return float(np.abs(a - b).max())
+
+        def rel_norm(want, got):
+            """||got - want|| / ||want|| over lists of CPU tensors."""
+            num = sum(float(((b.double() - a.double()) ** 2).sum())
+                      for a, b in zip(want, got))
+            den = sum(float((a.double() ** 2).sum()) for a in want)
+            return (num / den) ** 0.5
+
+        cpu_ = lambda ts: [t.detach().cpu() for t in ts]
+        mu_d = rel_norm(cpu_(sc.opt_state.mu), cpu_(sg.opt_state.mu))
+        nu_d = rel_norm(cpu_(sc.opt_state.nu), cpu_(sg.opt_state.nu))
+        move_d = rel_norm(
+            [a - s for a, s in zip(cpu_(cpu_model.parameters()), start)],
+            [b - s for b, s in zip(cpu_(card_model.parameters()), start)])
+        par_d = tree_max(vc["params"], vg["params"])
+        stat_d = tree_max(vc["batch_stats"], vg["batch_stats"])
+        par_bound = 2 * lr + 1e-6
+        print(f"  card vs CPU port, {TRAIN_CMP_STEPS} steps from the same "
+              f"weights and views: loss max |d| {loss_d:.3g} (bound "
+              f"{TRAIN_LOSS_ATOL:g}), running statistics {stat_d:.3g} "
+              f"({TRAIN_STATS_ATOL:g}); Adam's moments, relative norm of the "
+              f"difference: mu {mu_d:.3g}, nu {nu_d:.3g} "
+              f"({TRAIN_MOMENT_RTOL:g}); the parameters' moves {move_d:.3g} "
+              f"({TRAIN_MOVE_RTOL:g}); parameters max |d| {par_d:.3g} "
+              f"({par_bound:g})")
+        if not (loss_d <= TRAIN_LOSS_ATOL and stat_d <= TRAIN_STATS_ATOL
+                and mu_d <= TRAIN_MOMENT_RTOL and nu_d <= TRAIN_MOMENT_RTOL
+                and move_d <= TRAIN_MOVE_RTOL and par_d <= par_bound):
+            fail("SSL training: card and CPU port differ beyond the bounds")
+        out["parity"] = dict(loss=loss_d, stats=stat_d, params=par_d,
+                             mu=mu_d, nu=nu_d, moves=move_d, views=view_d)
+    return out
+
+
+def seg_train_phase(dev, card) -> dict:
+    """(b) UNet++ at the config's filters (64 .. 1024), 256x256, batch 4:
+    masks written by the port's preprocessing runner with ``debug``
+    (``<out>/debug/<cluster>/mask/<name>``) for 40 PolyU-shaped prints,
+    ``train_from_config`` for 2 epochs on the card (ms a step, peak
+    memory, val dice and IoU), then a resume from ``last.msgpack``: it
+    starts at the saved epoch + 1 with the lr, ``count``, ``mu`` and
+    ``nu`` saved."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing.runner import (
+        run_preprocessing)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.train import (
+        seg_train)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        NestedUNet)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        load_msgpack)
+    polyu_set = load_tool("polyu_set")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        files = polyu_set.write_raw(root / "raw", SEG_SUBJECTS)
+        images = root / "images" / "cluster_0"
+        images.mkdir(parents=True)
+        for f in sorted((root / "raw" / "DBII").iterdir()):
+            (images / f.name).write_bytes(f.read_bytes())
+        _, t_masks = wall_s(lambda: run_preprocessing(
+            root / "images", root / "processed", debug=True, device=dev))
+        ckpt = root / "seg"
+        text = (ROOT / "configs" / "config_segmentation.yml").read_text()
+        for old, new in (
+                ("images_dir: dataset/DBII", f"images_dir: {root / 'images'}"),
+                ("masks_dir: dataset/processed/debug",
+                 f"masks_dir: {root / 'processed' / 'debug'}"),
+                ("epochs: 10", f"epochs: {SEG_EPOCHS}"),
+                ("checkpoint_dir: save_models/segmentation",
+                 f"checkpoint_dir: {ckpt}"),
+                ("curves_csv: logs/seg_training_curve.csv",
+                 f"curves_csv: {ckpt / 'curve.csv'}")):
+            if old not in text:
+                fail(f"configs/config_segmentation.yml has no '{old}'")
+            text = text.replace(old, new)
+        cfg = root / "seg.yml"
+        cfg.write_text(text)
+        torch.cuda.reset_peak_memory_stats()
+        res, t_train = wall_s(lambda: seg_train.train_from_config(
+            str(cfg), device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        secs, steps = res["seconds"], res["steps"]
+        ms_step = 1e3 * secs["train_steps"] / steps
+        last = res["history"][-1]
+        n_pairs = len(seg_train.collect_image_mask_paths(
+            root / "images", root / "processed" / "debug"))
+        print(f"  masks by run_preprocessing(debug=True): {n_pairs} pairs of "
+              f"{len(files)} files in {t_masks:.2f} s; train_from_config "
+              f"{SEG_EPOCHS} epochs, {steps} steps in {t_train:.2f} s: "
+              f"{ms_step:.2f} ms a step (synchronized by the loss read), host "
+              f"batches {1e3 * secs['batches'] / max(steps, 1):.2f} ms a step, "
+              f"eval {secs['eval']:.2f} s; peak {peak / 2 ** 20:.1f} MiB; val "
+              f"dice {last['val_dice']:.4f}, IoU {last['val_iou']:.4f}, loss "
+              f"{last['loss']:.4f} ({card})")
+        saved = load_msgpack(ckpt / "last.msgpack")
+        scfg = seg_train.load_segmentation_config(str(cfg))
+        model = NestedUNet(tuple(scfg.get("model.filters")))
+        tx = seg_train.make_tx(scfg, n_pairs - max(1, int(n_pairs * 0.2)), 4)
+        opt, start = seg_train.resume_state(model, tx, ckpt / "last.msgpack",
+                                            dev)
+        adam = saved["opt_state"]["1"]
+        tree = tx.to_flax(opt, lambda ts: seg_train.params_tree_of(model, ts))
+
+        def same(a, b):
+            if isinstance(a, dict):
+                return all(same(a[k], b[k]) for k in a)
+            return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+        checks = {
+            "epoch + 1": start == saved["epoch"] + 1 == SEG_EPOCHS,
+            "lr": opt.hyperparams["learning_rate"] == np.float32(
+                adam["hyperparams"]["learning_rate"]),
+            "count": opt.count == int(adam["inner_state"]["0"]["count"])
+                     == steps,
+            "mu": same(adam["inner_state"]["0"]["mu"],
+                       tree["1"]["inner_state"]["0"]["mu"]),
+            "nu": same(adam["inner_state"]["0"]["nu"],
+                       tree["1"]["inner_state"]["0"]["nu"]),
+            "finite losses": all(np.isfinite(h["loss"]) for h in res["history"]),
+        }
+        text = text.replace("resume_from_checkpoint: null",
+                            f"resume_from_checkpoint: {ckpt / 'last.msgpack'}")
+        text = text.replace(f"epochs: {SEG_EPOCHS}", f"epochs: {SEG_EPOCHS + 1}")
+        text = text.replace(f"checkpoint_dir: {ckpt}",
+                            f"checkpoint_dir: {root / 'seg2'}")
+        cfg.write_text(text)
+        res2 = seg_train.train_from_config(str(cfg), device=dev)
+        checks["resumed run starts at the next epoch"] = (
+            [h["epoch"] for h in res2["history"]] == [SEG_EPOCHS])
+        print("  resume from last.msgpack: " + ", ".join(
+            f"{k} {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+        if not all(checks.values()):
+            fail("UNet++ training or its resume")
+    return dict(ms_step=ms_step, steps=steps, peak_bytes=peak,
+                val_dice=last["val_dice"], val_iou=last["val_iou"],
+                seconds=secs, train_s=t_train)
+
+
+def train_run_all_phase(dev, build, card) -> dict:
+    """(c) ``run_all(skip_ssl=False, train=True)`` from the raw tree of
+    ``ssl_run_all_phase`` (168 files), 1 epoch, no checkpoint: it trains,
+    writes ``ssl_model_final.msgpack``, clusters, sorts and runs the file
+    stages to EER; held to that phase's bounds."""
+    import os
+    from multimodal_biometric_fingerprints_palms_tpu_torch import pipeline
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        load_msgpack)
+    polyu_set = load_tool("polyu_set")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "dataset"
+        files = polyu_set.write_raw(data, RAW_SUBJECTS, RAW_NIST)
+        cfg, ccfg = _ssl_cfg(root, epochs=1)
+        batch = int(ccfg.ssl.dataset.get("batch_size"))
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+        os.chdir(root)
+        try:
+            res, t_all = wall_s(lambda: pipeline.run_all(
+                str(data), classifier_config=str(cfg), train=True,
+                demo_matching=False))
+        finally:
+            os.chdir(cwd)
+        launches = dict(build.LAUNCHES)
+        final = root / "save_models" / "ssl_model_final.msgpack"
+        payload = load_msgpack(final) if final.is_file() else {}
+        ssl, mat = res["ssl"], res["matching"]
+        sorted_n = len([p for p in (data / "sorted_dataset").rglob("*")
+                        if p.is_file()])
+        g, imp = mat["genuine_scores"], mat["impostor_scores"]
+        gap = float(g.mean() - imp.mean())
+        print(f"  {len(files)} raw files; run_all {t_all:.2f} s: trained "
+              f"{ssl.get('training', {}).get('branch')} views, "
+              f"{payload.get('step')} steps, loss "
+              f"{ssl.get('training', {}).get('history')}; clusters "
+              f"{ssl['clustering_report']['cluster_sizes']}; sorted "
+              f"{sorted_n} files; EER {mat['eer']:.4f} (<= 0.13), gap "
+              f"{gap:.4f} (>= 0.3)")
+        seconds = {**{f"ssl {k}": v for k, v in ssl["seconds"].items()},
+                   **{k: v for k, v in res["seconds"].items() if k != "ssl"}}
+        print(f"  stage seconds on {card}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in seconds.items()))
+        if (not payload or payload["step"] != len(files) // batch
+                or "training" not in ssl or sorted_n != len(files)
+                or mat["eer"] > 0.13 or gap < 0.3):
+            fail("run_all(train=True) from a raw tree")
+    return dict(run_all_s=t_all, seconds=seconds, eer=mat["eer"], gap=gap,
+                launches=launches, steps=payload["step"])
+
+
+def train_phase(dev, build, card) -> dict:
+    """(a), (b) and (c) from a scratch working directory (the trainers and
+    runners log to ``data/metadata/`` under it, as the JAX package's do)."""
+    import os
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            print("  (a) SSL training, full width:")
+            ssl = ssl_train_phase(dev, card)
+            print("  (b) UNet++ training, filters 64 .. 1024:")
+            seg = seg_train_phase(dev, card)
+        finally:
+            os.chdir(cwd)
+    print("  (c) run_all(skip_ssl=False, train=True) from a raw tree:")
+    raw = train_run_all_phase(dev, build, card)
+    return dict(ssl=ssl, seg=seg, run_all=raw)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2524,6 +2994,16 @@ def main() -> None:
                                              "coassignment", "emb_err",
                                              "eer")}}}))
 
+    # 14. training: SSL on host and device views, UNet++, run_all(train=True)
+    print("training (train/, classifier.augment_device, run_all(train=True)):")
+    t0 = time.perf_counter()
+    trained = train_phase(dev, build, card)
+    print(f"  training phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"training": {"card": card, **{
+        k: v for k, v in trained.items() if k != "run_all"},
+        "run_all": {k: trained["run_all"][k] for k in (
+            "run_all_s", "seconds", "eer", "gap", "steps")}}}))
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -2584,6 +3064,10 @@ def main() -> None:
     for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
                                     "binarize", "morph")):
         k["ssl_run_all_launches"] = raw["launches"][counter]
+    # and in run_all(skip_ssl=False, train=True), which trains first
+    for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
+                                    "binarize", "morph")):
+        k["train_run_all_launches"] = trained["run_all"]["launches"][counter]
     # launches of each kernel on the Gabor path (its counts set to 0 just
     # before it and read just after)
     for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",

@@ -8,14 +8,19 @@ the sample nearest that mean -> ``id_clusters.csv`` (filename, path,
 global_id, cluster_label).
 
 Weights: ``<save_dir>/ssl_model_final.msgpack``, the JAX package's
-checkpoint format (``utils/checkpoint.py``), when it exists. Without one
-and with ``train=False`` the weights are seeded from ``ssl.dataset.seed``
-through an explicit ``torch.Generator`` with flax's initialisers
-(``models.seed_weights``: lecun normal kernels, zero biases, unit
-BatchNorm): flax's own draws cannot be
-reproduced without flax, so untrained embeddings, and the clusters built
-on them, differ from the JAX package's. ``train=True`` without a
-checkpoint raises: training is ``ROADMAP.md`` queue 1 item 4.
+checkpoint format (``utils/checkpoint.py``), when it exists. Without one,
+``train=True`` trains on ``device`` and writes it (``train/ssl_train.py``):
+with ``ssl.training.device_augment`` and images of one shape the uint8 set
+goes to the device and the views are rendered there
+(``train_ssl_device``), otherwise (logged, as in the JAX package) host
+``two_view_batches`` with seed ``seed + epoch number`` (``train_ssl``).
+Initial weights, and with ``train=False`` the serving weights, are seeded
+from ``ssl.dataset.seed`` through an explicit ``torch.Generator`` with
+flax's initialisers (``models.seed_weights``: lecun normal kernels, zero
+biases, unit BatchNorm): flax's own draws cannot be reproduced without
+flax, so untrained embeddings, and the clusters built on them, differ from
+the JAX package's. ``ssl.model.freeze_backbone`` is read by neither
+trainer (the JAX package's ignores it too: ``ROADMAP.md`` queue 3).
 
 The JAX pipeline draws an embedding scatter with scikit-learn and
 matplotlib inside a ``try``; neither is on the card's machine, so the port
@@ -42,8 +47,10 @@ from ..models.ssl_model import SSLModel
 from ..utils import threefry
 from ..utils.checkpoint import load_msgpack
 from ..utils.device import resolve_device
+from ..utils.image_codec import ImageFormatError
+from ..utils.io import read_image_grayscale
 from ..utils.logging import console_step, get_file_logger
-from .data import collect_image_paths, global_id_for
+from .data import collect_image_paths, global_id_for, two_view_batches
 from .embeddings import extract_embeddings
 
 logger = get_file_logger(__name__, "data/metadata/train.log")
@@ -67,33 +74,94 @@ def discover_dataset_dirs(base: str | Path) -> list[Path]:
     return dirs or [base]
 
 
-def load_ssl_model(cfg, save_dir: Path, train: bool, device) -> SSLModel:
-    """The SSL model on ``device`` with the checkpoint's weights, or seeded
-    ones (``train=False``); raises for training."""
+def _uniform_set(paths) -> np.ndarray | None:
+    """The images stacked as (N, H, W) uint8 when every file reads and all
+    share one shape, else None."""
+    imgs = []
+    for p in paths:
+        try:
+            imgs.append(read_image_grayscale(p))
+        except (OSError, ImageFormatError):
+            return None
+    if len({im.shape for im in imgs}) != 1:
+        return None
+    return np.stack(imgs)
+
+
+def train_ssl_model(cfg, model: SSLModel, paths, save_dir: Path, mesh,
+                    device) -> dict:
+    """Train ``model`` as the JAX pipeline does (see the module note);
+    writes ``<save_dir>/ssl_model_final.msgpack``. Returns the trainer's
+    history and which branch ran."""
+    from ..train.ssl_train import train_ssl, train_ssl_device
+    tcfg, dcfg = cfg.ssl.training, cfg.ssl.dataset
+    image_size = dcfg.get("image_size", 224)
+    batch_size = dcfg.get("batch_size", 16)
+    seed = dcfg.get("seed", 42)
+    common = dict(
+        epochs=tcfg.get("epochs", 3), lr=tcfg.get("lr", 1e-5),
+        weight_decay=tcfg.get("weight_decay", 1e-5),
+        grad_clip=tcfg.get("grad_clip", 1.0),
+        warmup_epochs=tcfg.get("warmup_epochs", 5),
+        temperature=tcfg.get("temperature", 0.5), seed=seed,
+        save_dir=save_dir, save_every=tcfg.get("save_every", 30),
+        early_stop_patience=tcfg.get("early_stop_patience", 15))
+    device_data = None
+    if tcfg.get("device_augment", False) and mesh is None:
+        device_data = _uniform_set(paths)
+        if device_data is None:
+            console_step("device_augment requested but image shapes "
+                         "differ; using host augmentation")
+    if device_data is not None:
+        console_step("Training SSL model (device-resident augmentation)")
+        _, history = train_ssl_device(model, device_data, batch_size,
+                                      image_size=image_size, device=device,
+                                      **common)
+        return {"branch": "device", "history": history}
+    console_step("Training SSL model")
+    epoch_counter = [0]
+
+    def batches():
+        epoch_counter[0] += 1
+        return two_view_batches(paths, batch_size, image_size,
+                                seed=seed + epoch_counter[0])
+
+    _, history = train_ssl(model, batches, max(1, len(paths) // batch_size),
+                           input_shape=(image_size, image_size), mesh=mesh,
+                           device=device, **common)
+    return {"branch": "host", "history": history}
+
+
+def load_ssl_model(cfg, save_dir: Path, train: bool, device, paths=(),
+                   mesh=None) -> tuple[SSLModel, dict | None]:
+    """(the SSL model on ``device`` in eval mode, what training reported or
+    None): the checkpoint's weights; without one, trained (``train=True``,
+    over ``paths``) or seeded."""
     model = build_model(cfg)
     final_ckpt = save_dir / "ssl_model_final.msgpack"
+    trained = None
     if final_ckpt.exists():
         console_step("Loading existing SSL checkpoint")
         payload = load_msgpack(final_ckpt)
         load_jax_variables(model, {"params": payload["params"],
                                    "batch_stats": payload["batch_stats"]})
     elif train:
-        raise NotImplementedError(
-            f"no SSL checkpoint at {final_ckpt}, and SSL training is not "
-            "ported yet: ROADMAP.md queue 1, item 4 (training); pass "
-            "train=False to run with seeded weights")
+        trained = train_ssl_model(cfg, model.to(device), paths, save_dir,
+                                  mesh, device)
     else:
         console_step("No SSL checkpoint: seeded weights (not trained)")
         seed_weights(model, int(cfg.ssl.dataset.get("seed", 42)))
-    return model.to(device).eval()
+    return model.to(device).eval(), trained
 
 
 def main(config_path: str | None = None, dataset_dirs=None,
          train: bool = True, mesh=None, device=None) -> dict:
     """Run the SSL pipeline on ``device`` (default: the card). Returns the
-    JAX function's keys, and under ``seconds`` each step's wall time."""
+    JAX function's keys, under ``seconds`` each step's wall time, and
+    under ``training`` (when it trained) the branch and the loss history.
+    ``mesh``: None, or a one-device mesh (``parallel.create_mesh``); as in
+    the JAX package, a mesh sends training to host views."""
     device = resolve_device(device, "the SSL pipeline")
-    del mesh        # configures data-parallel training (queue 1, item 4)
     cfg = load_classifier_config(config_path)
     save_dir = Path(cfg.paths.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
@@ -119,8 +187,9 @@ def main(config_path: str | None = None, dataset_dirs=None,
     image_size = dcfg.get("image_size", 224)
     batch_size = dcfg.get("batch_size", 16)
     seed = int(dcfg.get("seed", 42))
-    model = load_ssl_model(cfg, save_dir, train, device)
-    lap("model")
+    model, training = load_ssl_model(cfg, save_dir, train, device, paths,
+                                     mesh)
+    lap("train" if training else "model")
 
     console_step("Extracting embeddings")
     embed_s: dict = {}
@@ -192,6 +261,7 @@ def main(config_path: str | None = None, dataset_dirs=None,
         "clustering_report": report,
         "csv_path": str(csv_path),
         "seconds": seconds,
+        **({"training": training} if training else {}),
     }
 
 

@@ -16,8 +16,11 @@ digit:
 - Submodules carry flax's auto-names in call order (``Conv_0``,
   ``BatchNorm_1``, ``FusedMBConv_3``, ``SqueezeExcite_0``, ``Dense_0``), so
   ``models/convert.py`` maps a JAX tree onto the ``state_dict`` by name.
-- BatchNorm: epsilon 1e-5 and momentum 0.01 (flax's 0.99 decay); this
-  slice runs it in eval mode.
+- BatchNorm: epsilon 1e-5, flax's 0.99 decay. In train mode it
+  normalises with the batch's biased variance (as both packages do) and
+  moves the running statistics as flax does: ``ra = 0.99 ra + 0.01 s``
+  with the *biased* batch variance, ``mean(x^2) - mean(x)^2`` clamped at 0
+  (``nn.BatchNorm2d`` would take the unbiased one, scaled by n / (n - 1)).
 """
 
 from __future__ import annotations
@@ -72,8 +75,34 @@ class SameConv2d(nn.Conv2d):
         return F.conv2d(x, self.weight, self.bias, s, 0, 1, self.groups)
 
 
+class _FlaxStats:
+    """Train-mode forward of a BatchNorm that updates its running
+    statistics as flax's ``nn.BatchNorm`` does (see the module note)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.ndim))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            self.running_mean.copy_(0.99 * self.running_mean + 0.01 * mean)
+            self.running_var.copy_(0.99 * self.running_var + 0.01 * var)
+        return y
+
+
+class FlaxBatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class FlaxBatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
+
+
 def batch_norm(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.01)
+    return FlaxBatchNorm2d(ch, eps=1e-5, momentum=0.01)
 
 
 class SqueezeExcite(nn.Module):

@@ -84,7 +84,8 @@ def _variables_from_state(state: dict) -> dict:
 
     for key, t in state.items():
         module, leaf = key.rsplit(".", 1)
-        arr = t.detach().cpu().numpy()
+        # a copy: a CPU tensor's numpy view would follow later training
+        arr = t.detach().cpu().numpy().copy()
         if module in bn_modules:
             if leaf == "num_batches_tracked":
                 continue
@@ -142,3 +143,19 @@ def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
         raise ValueError(f"shapes differ (key, JAX, port): {bad[:8]}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def params_tree_of(model: nn.Module, tensors) -> dict:
+    """The flax params tree of ``tensors``, a list aligned with
+    ``model.parameters()`` (an optimizer's moments, say)."""
+    state = dict(zip((k for k, _ in model.named_parameters()), tensors))
+    state.update(model.named_buffers())
+    return _variables_from_state(state)["params"]
+
+
+def params_list_of(model: nn.Module, tree: dict) -> list:
+    """``params_tree_of``'s inverse: the list aligned with
+    ``model.parameters()`` of a flax params tree."""
+    stats = _variables_from_state(dict(model.named_buffers()))["batch_stats"]
+    state = _state_from_jax({"params": tree, "batch_stats": stats})
+    return [state[k] for k, _ in model.named_parameters()]

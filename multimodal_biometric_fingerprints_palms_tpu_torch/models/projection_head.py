@@ -7,6 +7,14 @@ match, L2-normalised output.
 and ``bias`` and computes ``w = v * (g / max(||v||, 1e-12))`` with the
 norm over the input axis. ``torch.nn.utils.parametrizations.weight_norm``
 is not used: it has no clamp.
+
+Dropout in train mode draws flax's masks bit for bit: layer ``i``'s key
+is flax's ``make_rng("dropout")`` in the module ``<name>/Dropout_<i>``,
+``utils.threefry.fold_in_static(rng, (name, "Dropout_<i>", 1))`` of the
+step's dropout key ``rng``; the mask is ``uniform < 0.9``, drawn on
+``x``'s device, and kept values
+are divided by 0.9 (a tensor divisor: the card turns a division by a
+Python scalar into a product with its reciprocal).
 """
 
 from __future__ import annotations
@@ -14,6 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import threefry
+from .backbone import FlaxBatchNorm1d
 
 
 def l2_normalize(y: torch.Tensor) -> torch.Tensor:
@@ -39,19 +50,34 @@ class WeightNormDense(nn.Module):
 
 
 def batch_norm1d(ch: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(ch, eps=1e-5, momentum=0.01)
+    return FlaxBatchNorm1d(ch, eps=1e-5, momentum=0.01)
+
+
+def flax_dropout(x: torch.Tensor, rng, path: tuple, rate: float
+                 ) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)`` at module ``path`` under the dropout key
+    ``rng`` (a ``utils.threefry`` key), its first call in the apply."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    key = threefry.fold_in_static(rng, tuple(path) + (1,))
+    mask = threefry.bernoulli(torch.tensor(key, device=x.device), keep,
+                              tuple(x.shape))
+    kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, kept, torch.zeros_like(x))
 
 
 class ProjectionHead(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int = 512,
                  output_dim: int = 256, num_layers: int = 2,
-                 dropout: float = 0.1, use_residual: bool = True):
+                 dropout: float = 0.1, use_residual: bool = True,
+                 name: str = "projection_head"):
         super().__init__()
         if num_layers < 1:
             raise ValueError("num_layers must be >= 1")
         self.num_layers = num_layers
         self.residual = use_residual and input_dim == output_dim
-        self.dropout = nn.Dropout(dropout)
+        self.dropout, self.name = dropout, name
         if num_layers == 1:
             self.Dense_0 = nn.Linear(input_dim, output_dim)
             return
@@ -62,12 +88,18 @@ class ProjectionHead(nn.Module):
             self.add_module(f"BatchNorm_{i}", batch_norm1d(hidden_dim))
         self.Dense_0 = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, x):
+    def forward(self, x, dropout_rng=None):
+        """``dropout_rng``: the step's dropout key, needed in train mode."""
+        if self.training and self.num_layers > 1 and dropout_rng is None:
+            raise ValueError("the projection head's dropout needs a key in "
+                             "train mode (flax's rngs={'dropout': ...})")
         y = x
         for i in range(self.num_layers - 1):
             y = getattr(self, f"WeightNormDense_{i}")(y)
             y = F.relu(getattr(self, f"BatchNorm_{i}")(y))
-            y = self.dropout(y)
+            if self.training:
+                y = flax_dropout(y, dropout_rng, (self.name, f"Dropout_{i}"),
+                                 self.dropout)
         y = self.Dense_0(y)
         if self.residual:
             y = y + x

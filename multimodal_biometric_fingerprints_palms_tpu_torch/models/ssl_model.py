@@ -4,7 +4,10 @@ backbone -> projection head -> optional BYOL/SimSiam predictor.
 ``forward`` runs in float32 without TF32 (``utils.device.full_float32``),
 as the JAX package computes. Call ``.eval()`` for inference: BatchNorm
 then uses its running statistics and dropout is off (the JAX package's
-``train=False``).
+``train=False``). In train mode (``train=True`` there) BatchNorm moves its
+running statistics as flax does and the projection head's dropout draws
+flax's masks from ``dropout_rng``, the key the JAX step hands
+``rngs={"dropout": ...}``.
 """
 
 from __future__ import annotations
@@ -50,10 +53,10 @@ class SSLModel(nn.Module):
                                     proj_output_dim)
                           if use_predictor else None)
 
-    def forward(self, x, return_embedding: bool = False):
+    def forward(self, x, return_embedding: bool = False, dropout_rng=None):
         with full_float32():
             embedding = self.backbone(x)
-            projection = self.projection_head(embedding)
+            projection = self.projection_head(embedding, dropout_rng)
             if self.predictor is not None:
                 projection = self.predictor(projection)
         if return_embedding:

@@ -48,8 +48,8 @@ def run_all(dataset_dir: str = "dataset",
     ``skip_ssl``, from ``<dataset_dir>/sorted_dataset``) on ``device``
     (default: the card; pass ``"cpu"`` to run there). Returns each stage's
     result under the JAX package's keys, and under ``seconds`` each stage's
-    wall time. ``train=True`` without an SSL checkpoint raises: training is
-    ``ROADMAP.md`` queue 1 item 4."""
+    wall time. ``train=True`` without an SSL checkpoint trains the SSL
+    model first (``classifier.pipeline.main``)."""
     device = resolve_device(device, "run_all")
     results: dict = {"seconds": {}}
     clock = time.perf_counter()

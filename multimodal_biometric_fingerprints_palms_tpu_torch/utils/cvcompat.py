@@ -1,5 +1,5 @@
-"""numpy counterparts of the four OpenCV calls the SSL front and the
-segmentation inference make (the port imports no OpenCV):
+"""numpy counterparts of the OpenCV calls the SSL front, its training and
+the segmentation make (the port imports no OpenCV):
 
 - ``resize(img, (w, h), interpolation)`` for ``cv2.INTER_AREA`` and
   ``cv2.INTER_LINEAR`` on uint8 and float32 grey images. OpenCV's three
@@ -9,18 +9,25 @@ segmentation inference make (the port imports no OpenCV):
   Tab`` weights); an axis that grows sends both axes through the linear
   resampler with "area mode" coordinates. uint8 rounds back to uint8,
   OpenCV's way on each path (half to even from float; the fixed-point
-  linear path in 11-bit coefficients).
+  linear path in 11-bit coefficients). ``cv2.INTER_NEAREST`` takes source
+  index ``floor(d / scale)`` (``scale = dst / src`` in float64). A 3-channel
+  image is resized channel by channel (equal to OpenCV's, tested).
 - ``blur(img, k)``: ``cv2.blur`` with ``BORDER_REFLECT_101``: the running
   row and column sums in float64 and the float64 scale ``1 / k**2``, as
   OpenCV's box filter keeps them for float32 input.
 - ``rotation_matrix_2d``: ``cv2.getRotationMatrix2D``.
 - ``warp_affine_linear``: ``cv2.warpAffine(..., INTER_LINEAR,
-  BORDER_REFLECT_101)`` on float32 as OpenCV 4.11 and later compute it:
-  float32 source coordinates (earlier versions cut them to 1/32 pixel in
-  fixed point and took the weights from a table) and fused lerps.
+  BORDER_REFLECT_101)`` on float32 of 1 or 3 channels as OpenCV 4.11 and
+  later compute it: float32 source coordinates (earlier versions cut them
+  to 1/32 pixel in fixed point and took the weights from a table), formed
+  one way in the vector loop and another in its scalar tail, and fused
+  lerps.
+- ``warp_affine_nearest``: ``cv2.warpAffine(..., INTER_NEAREST)`` with the
+  default constant-0 border: the same float32 coordinates, rounded half to
+  even.
 
-``tests/test_torch_classifier.py`` holds each to OpenCV and states what
-differs.
+``tests/test_torch_classifier.py`` and ``tests/test_torch_seg_train.py``
+hold each to OpenCV and state what differs.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import math
 
 import numpy as np
 
-INTER_LINEAR, INTER_AREA = 1, 3           # cv2's constants
+INTER_NEAREST, INTER_LINEAR, INTER_AREA = 0, 1, 3   # cv2's constants
 _COEF_BITS = 11                            # INTER_RESIZE_COEF_BITS
 
 
@@ -105,9 +112,9 @@ def _resize_area_frac(img: np.ndarray, w: int, h: int) -> np.ndarray:
 
 
 def _resize_area_int(img: np.ndarray, sx: int, sy: int) -> np.ndarray:
-    """``resizeAreaFast``: integer cells, summed (in int for uint8) and
-    scaled by the float32 ``1 / area``. For uint8 at 2 x 2 OpenCV's vector
-    path rounds ``(sum + 2) >> 2``."""
+    """``resizeAreaFast``: integer cells, summed (in int for uint8, in
+    OpenCV's order for float32) and scaled by the float32 ``1 / area``. For
+    uint8 at 2 x 2 OpenCV's vector path rounds ``(sum + 2) >> 2``."""
     sh, sw = img.shape
     h, w = sh // sy, sw // sx
     cells = img[:h * sy, :w * sx].reshape(h, sy, w, sx)
@@ -117,11 +124,22 @@ def _resize_area_int(img: np.ndarray, sx: int, sy: int) -> np.ndarray:
             return ((total + 2) >> 2).astype(np.uint8)
         return _round_u8(total.astype(np.float32)
                          * np.float32(1.0 / np.float32(sx * sy)))
+    # float: at 2 x 2 OpenCV's vector path sums each row's pair, then the
+    # rows; otherwise the cell's pixels in row order, four at a time
+    terms = [cells[:, a, :, b].astype(np.float32)
+             for a in range(sy) for b in range(sx)]
+    area = sx * sy
+    if (sx, sy) == (2, 2):
+        return ((terms[0] + terms[1]) + (terms[2] + terms[3])) * np.float32(0.25)
     total = np.zeros((h, w), np.float32)
-    for a in range(sy):
-        for b in range(sx):
-            total = total + cells[:, a, :, b].astype(np.float32)
-    return total * np.float32(np.float32(1.0) / np.float32(sx * sy))
+    k = 0
+    while k <= area - 4:
+        total = total + (((terms[k] + terms[k + 1]) + terms[k + 2])
+                         + terms[k + 3])
+        k += 4
+    for t in terms[k:]:
+        total = total + t
+    return total * np.float32(np.float32(1.0) / np.float32(area))
 
 
 def _linear_coeffs(ssize: int, dsize: int, area_mode: bool):
@@ -168,26 +186,47 @@ def _resize_linear(img: np.ndarray, w: int, h: int, area_mode: bool):
         out = (((by0[:, None] * (r0 >> 4)) >> 16)
                + ((by1[:, None] * (r1 >> 4)) >> 16) + 2) >> 2
         return np.clip(out, 0, 255).astype(np.uint8)
-    # float: each pass's two products and their sum rounded once to
-    # float32 (OpenCV's vector code rounds some of them once more: within
-    # 2 ulps, tests/test_torch_classifier.py)
+    by0 = (np.float32(1.0) - yf)[:, None]
+    if area_mode:
+        # float, an INTER_AREA axis that grows: in each pass both products
+        # rounded to float32, then their sum (bit-equal to OpenCV)
+        s = img.astype(np.float32)
+        rows = s[:, xi] * (np.float32(1.0) - xf) + s[:, x1] * xf
+        return rows[yi] * by0 + rows[y1] * yf[:, None]
+    # float INTER_LINEAR: each pass's two products and their sum rounded
+    # once to float32 (OpenCV's vector code rounds some of them once more:
+    # within 2 ulps, tests/test_torch_classifier.py)
     s = img.astype(np.float64)
     rows = (s[:, xi] * (np.float32(1.0) - xf) + s[:, x1] * xf).astype(np.float32)
     r = rows.astype(np.float64)
-    by0 = (np.float32(1.0) - yf)[:, None]
     return (r[yi] * by0 + r[y1] * yf[:, None]).astype(np.float32)
+
+
+def _resize_nearest(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))), sh - 1)
+    return img[ys.astype(np.int64)][:, xs.astype(np.int64)]
 
 
 def resize(img: np.ndarray, dsize: tuple[int, int],
            interpolation: int = INTER_LINEAR) -> np.ndarray:
-    """``cv2.resize(img, dsize, interpolation=...)`` of a 2-D uint8 or
-    float32 image; ``dsize`` is (width, height) as in OpenCV."""
-    if img.dtype not in (np.uint8, np.float32) or img.ndim != 2:
-        raise TypeError("resize takes a 2-D uint8 or float32 image")
+    """``cv2.resize(img, dsize, interpolation=...)`` of a uint8 or float32
+    image of 1 or 3 channels ((H, W) or (H, W, 3)); ``dsize`` is (width,
+    height) as in OpenCV."""
+    if img.dtype not in (np.uint8, np.float32) or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise TypeError("resize takes a uint8 or float32 (H, W) or "
+                        "(H, W, 3) image")
     w, h = dsize
-    sh, sw = img.shape
+    sh, sw = img.shape[:2]
     if (w, h) == (sw, sh):
         return img.copy()
+    if interpolation == INTER_NEAREST:
+        return _resize_nearest(img, w, h)
+    if img.ndim == 3:
+        return np.stack([resize(np.ascontiguousarray(img[..., c]), dsize,
+                                interpolation) for c in range(3)], axis=2)
     if interpolation == INTER_AREA and sw >= w and sh >= h:
         if sw % w == 0 and sh % h == 0:
             return _resize_area_int(img, sw // w, sh // h)
@@ -262,18 +301,29 @@ def _fma(a, b, c) -> np.ndarray:
             + np.asarray(c, np.float64)).astype(np.float32)
 
 
-def warp_affine_linear(img: np.ndarray, m: np.ndarray,
-                       dsize: tuple[int, int]) -> np.ndarray:
-    """``cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR,
-    borderMode=BORDER_REFLECT_101)`` of a 2-D float32 image, as OpenCV
-    4.11 and later compute it: the inverse map in float64, then float32
-    (``M``); per row ``M1 * y + M2`` (a product and a sum); per pixel the
-    source ``fma(M0, x, that)``; weights ``s - floor(s)``; and three fused
-    lerps, along x on both rows, then along y."""
-    if img.dtype != np.float32 or img.ndim != 2:
-        raise TypeError("warp_affine_linear takes a 2-D float32 image")
-    w, h = dsize
-    sh, sw = img.shape
+_WARP_LANES = 16      # pixels a step of OpenCV's vector loop in warpAffine
+
+
+def _warp_coords(M: np.ndarray, w: int, h: int):
+    """Float32 source coordinates of every destination pixel, as OpenCV
+    4.11+ forms them: in the vector loop ``fma(M0, x, M1 * y + M2)``; in
+    the scalar tail (the last ``w % 16`` columns) ``fma(M0, x, M1 * y) +
+    M2``."""
+    Mf = M.astype(np.float32)
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    tail = xs >= (w // _WARP_LANES) * _WARP_LANES
+
+    def one(a, b, c):
+        vec = _fma(a, xs, b * ys + c)
+        scalar = _fma(a, xs, b * ys) + c
+        return np.where(tail, scalar, vec)
+
+    return one(Mf[0], Mf[1], Mf[2]), one(Mf[3], Mf[4], Mf[5])
+
+
+def _inverse_affine(m: np.ndarray) -> np.ndarray:
+    """OpenCV's inversion of a (2, 3) map, in float64."""
     M = np.asarray(m, np.float64).reshape(6).copy()
     d = M[0] * M[4] - M[1] * M[3]
     d = 1.0 / d if d != 0 else 0.0
@@ -285,13 +335,28 @@ def warp_affine_linear(img: np.ndarray, m: np.ndarray,
     b1 = -M[0] * M[2] - M[1] * M[5]
     b2 = -M[3] * M[2] - M[4] * M[5]
     M[2], M[5] = b1, b2
-    Mf = M.astype(np.float32)
-    ys = np.arange(h, dtype=np.float32)[:, None]
-    xs = np.arange(w, dtype=np.float32)[None, :]
-    sx = _fma(Mf[0], xs, Mf[1] * ys + Mf[2])
-    sy = _fma(Mf[3], xs, Mf[4] * ys + Mf[5])
+    return M
+
+
+def warp_affine_linear(img: np.ndarray, m: np.ndarray,
+                       dsize: tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_REFLECT_101)`` of a float32 image of 1 or 3
+    channels ((H, W) or (H, W, 3)), as OpenCV 4.11 and later compute it:
+    the inverse map in float64, then float32; the source coordinates of
+    ``_warp_coords``; weights ``s - floor(s)``; and three fused lerps,
+    along x on both rows, then along y."""
+    if img.dtype != np.float32 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise TypeError("warp_affine_linear takes a float32 (H, W) or "
+                        "(H, W, 3) image")
+    w, h = dsize
+    sh, sw = img.shape[:2]
+    sx, sy = _warp_coords(_inverse_affine(m), w, h)
     fx, fy = np.floor(sx), np.floor(sy)
     ax, ay = sx - fx, sy - fy
+    if img.ndim == 3:
+        ax, ay = ax[..., None], ay[..., None]
     ix, iy = fx.astype(np.int64), fy.astype(np.int64)
     x0, x1 = _reflect101(ix, sw), _reflect101(ix + 1, sw)
     y0, y1 = _reflect101(iy, sh), _reflect101(iy + 1, sh)
@@ -300,3 +365,19 @@ def warp_affine_linear(img: np.ndarray, m: np.ndarray,
     top = _fma(ax, p01 - p00, p00)
     bottom = _fma(ax, p11 - p10, p10)
     return _fma(ay, bottom - top, top)
+
+
+def warp_affine_nearest(img: np.ndarray, m: np.ndarray,
+                        dsize: tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=INTER_NEAREST)`` of a 2-D
+    image with OpenCV's default border, constant 0: the source pixel
+    nearest ``_warp_coords``' float32 point (half to even), 0 outside."""
+    if img.ndim != 2:
+        raise TypeError("warp_affine_nearest takes a 2-D image")
+    w, h = dsize
+    sh, sw = img.shape
+    sx, sy = _warp_coords(_inverse_affine(m), w, h)
+    x, y = np.rint(sx).astype(np.int64), np.rint(sy).astype(np.int64)
+    inside = (x >= 0) & (x < sw) & (y >= 0) & (y < sh)
+    got = img[np.clip(y, 0, sh - 1), np.clip(x, 0, sw - 1)]
+    return np.where(inside, got, np.zeros((), img.dtype)).astype(img.dtype)

@@ -816,11 +816,8 @@ def _png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 grey of an 8-bit PNG, as OpenCV's ``IMREAD_GRAYSCALE``
-    gives it: libpng's ``rgb_to_gray`` with OpenCV's weights 0.299 and
-    0.587 (29900 * 32768 // 100000 and 58700 * 32768 // 100000 of 32768,
-    the rest blue), truncated, grey pixels kept; alpha dropped."""
+def _png_pixels(data: bytes, name: str) -> np.ndarray:
+    """(H, W, channels) uint8 samples of an 8-bit non-interlaced PNG."""
     if data[:8] != _PNG_SIG:
         raise ImageFormatError(f"{name}: not a PNG file")
     i, idat, hdr = 8, [], None
@@ -849,8 +846,17 @@ def decode_png_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise ImageFormatError(f"{name}: corrupt PNG data: {e}") from None
     if raw.size < h * (w * channels + 1):
         raise ImageFormatError(f"{name}: truncated PNG data")
-    px = _png_unfilter(raw[:h * (w * channels + 1)], h, w * channels,
-                       channels).reshape(h, w, channels)
+    return _png_unfilter(raw[:h * (w * channels + 1)], h, w * channels,
+                         channels).reshape(h, w, channels)
+
+
+def decode_png_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W) uint8 grey of an 8-bit PNG, as OpenCV's ``IMREAD_GRAYSCALE``
+    gives it: libpng's ``rgb_to_gray`` with OpenCV's weights 0.299 and
+    0.587 (29900 * 32768 // 100000 and 58700 * 32768 // 100000 of 32768,
+    the rest blue), truncated, grey pixels kept; alpha dropped."""
+    px = _png_pixels(data, name)
+    channels = px.shape[2]
     if channels <= 2:
         return np.ascontiguousarray(px[..., 0])
     r, g, b = (px[..., c].astype(np.int64) for c in range(3))
@@ -891,8 +897,9 @@ def _bgr_to_gray_cv(b, g, r):
              + 4899 * r.astype(np.int64) + 8192) >> 14).astype(np.uint8)
 
 
-def decode_bmp_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 grey of an uncompressed 8-bit paletted or 24-bit BMP."""
+def _bmp_pixels(data: bytes, name: str):
+    """(rows (H, W*3) BGR or (H, W) palette indices, palette (256, 3+) BGR
+    or None, W) of an uncompressed 8-bit paletted or 24-bit BMP."""
     if data[:2] != b"BM" or len(data) < 26:
         raise ImageFormatError(f"{name}: not a BMP file")
     offset, dib = struct.unpack("<II", data[10:18])
@@ -920,18 +927,25 @@ def decode_bmp_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if not top_down:
         rows = rows[::-1]
     if bpp == 24:
-        px = rows[:, :3 * w].reshape(h, w, 3)
-        return _bgr_to_gray_cv(px[..., 0], px[..., 1], px[..., 2])
+        return rows[:, :3 * w].reshape(h, w, 3), None
     ncolors = ncolors or 256
     pal_at = 14 + dib
     pal = np.zeros((256, pal_entry), np.uint8)
     raw = np.frombuffer(data, np.uint8, min(ncolors, 256) * pal_entry, pal_at)
     pal[:min(ncolors, 256)] = raw.reshape(-1, pal_entry)
+    return rows[:, :w], pal
+
+
+def decode_bmp_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W) uint8 grey of an uncompressed 8-bit paletted or 24-bit BMP."""
+    px, pal = _bmp_pixels(data, name)
+    if pal is None:
+        return _bgr_to_gray_cv(px[..., 0], px[..., 1], px[..., 2])
     if (pal[:, 0] == pal[:, 1]).all() and (pal[:, 0] == pal[:, 2]).all():
         lut = pal[:, 0]
     else:
         lut = _bgr_to_gray_cv(pal[:, 0], pal[:, 1], pal[:, 2])
-    return lut[rows[:, :w]]
+    return lut[px]
 
 
 def encode_bmp(img: np.ndarray) -> bytes:
@@ -973,6 +987,54 @@ def decode_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
 def read_gray(path: str | Path) -> np.ndarray:
     path = Path(path)
     return decode_gray(path.read_bytes(), str(path))
+
+
+def _jpeg_components(data: bytes, name: str) -> int:
+    """The component count of a JPEG's frame header."""
+    i = 2
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            i += 1
+            continue
+        m = data[i + 1]
+        if m == 0xFF or m == 0x01 or 0xD0 <= m <= 0xD8:
+            i += 1 if m == 0xFF else 2
+            continue
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            return data[i + 9]
+        i += 2 + length
+    raise ImageFormatError(f"{name}: JPEG without a frame header")
+
+
+def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a file's bytes, as OpenCV's ``IMREAD_COLOR``
+    followed by ``COLOR_BGR2RGB`` gives it: grey JPEGs, PNGs and BMPs
+    repeat their grey in the three channels; colour PNGs and BMPs keep
+    their samples (alpha dropped). A colour JPEG is refused: its chroma
+    upsampling and colour conversion are not ported (``ROADMAP.md`` queue
+    1, item 2)."""
+    if data[:2] == b"\xff\xd8":
+        if _jpeg_components(data, name) != 1:
+            raise ImageFormatError(
+                f"{name}: colour JPEG read as colour is not supported (grey "
+                "JPEGs only; ROADMAP.md queue 1, item 2)")
+        return np.repeat(decode_jpeg_gray(data, name)[..., None], 3, axis=2)
+    if data[:8] == _PNG_SIG:
+        px = _png_pixels(data, name)
+        if px.shape[2] <= 2:
+            return np.repeat(px[..., :1], 3, axis=2)
+        return np.ascontiguousarray(px[..., :3])
+    if data[:2] == b"BM":
+        px, pal = _bmp_pixels(data, name)
+        bgr = px if pal is None else pal[px][..., :3]
+        return np.ascontiguousarray(bgr[..., ::-1])
+    return np.repeat(decode_gray(data, name)[..., None], 3, axis=2)
+
+
+def read_rgb(path: str | Path) -> np.ndarray:
+    path = Path(path)
+    return decode_rgb(path.read_bytes(), str(path))
 
 
 _ENCODERS = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png,

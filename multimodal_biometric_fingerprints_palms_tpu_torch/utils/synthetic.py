@@ -17,6 +17,12 @@ OpenCV; this copy warps with the port's ``ops.geometry.affine_warp`` and
 blurs with ``ops.filters.gaussian_blur_cv`` (both imported when called,
 so importing this module needs numpy only) and fills its smudges with
 numpy, so its second sessions are not the JAX script's images.
+
+``family_params`` and ``family_render`` are the SSL-quality protocol's
+generator (``benchmarks/ssl_at_scale.py``'s ``family_params`` and
+``render``): ``N_FAMILIES`` ridge-pattern families (frequency band, flow
+style, curvature), an id drawn from its family, each impression jittered;
+the same generator calls in the same order give the same images.
 """
 
 from __future__ import annotations
@@ -213,3 +219,41 @@ def degrade_session(img: np.ndarray, seed: int,
                       float(g.uniform(0, 180)), float(g.uniform(0.55, 0.8)))
     f = f + g.normal(0, 0.10 * s, (h, w)).astype(np.float32)
     return (np.clip(f, 0, 1) * 255).astype(np.uint8)
+
+
+N_FAMILIES = 8
+
+
+def family_params(rng: np.random.Generator, fam: int) -> dict:
+    """Family = a region of pattern space (frequency x style x curvature)."""
+    return dict(
+        freq=2.5 + 0.9 * fam + rng.uniform(-0.15, 0.15),
+        style=fam % 4,           # 0 rings, 1 spiral, 2 waves, 3 saddle
+        curve=0.4 + 0.15 * (fam // 4),
+    )
+
+
+def family_render(rng: np.random.Generator, p: dict, h: int = 320,
+                  w: int = 256) -> np.ndarray:
+    """One (h, w) uint8 impression of a family-parameterised id."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy = h / 2 + rng.uniform(-25, 25)
+    cx = w / 2 + rng.uniform(-20, 20)
+    u, v = (yy - cy) / 100.0, (xx - cx) / 100.0
+    r = np.hypot(u, v)
+    ang = np.arctan2(u, v)
+    ph = rng.uniform(0, 6.28)
+    if p["style"] == 0:
+        field = r * p["freq"] * 6.28
+    elif p["style"] == 1:
+        field = (r * p["freq"] + p["curve"] * ang) * 6.28
+    elif p["style"] == 2:
+        field = (u * p["freq"] + p["curve"] * np.sin(2 * v)) * 6.28
+    else:
+        field = (u * v * p["curve"] * 4 + r * p["freq"]) * 6.28
+    img = 0.5 + 0.45 * np.cos(field + ph)
+    ell = (u / 1.4) ** 2 + (v / 1.15) ** 2 < 1.0
+    img = np.where(ell, img, 0.93)
+    img = img + rng.normal(0, 0.04, img.shape)
+    gain = rng.uniform(0.85, 1.1)
+    return (np.clip(img * gain, 0, 1) * 255).astype(np.uint8)

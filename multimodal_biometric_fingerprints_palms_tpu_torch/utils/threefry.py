@@ -1,4 +1,4 @@
-"""Threefry-2x32 uniforms in numpy, equal bit for bit to
+"""Threefry-2x32 draws equal bit for bit to ``jax.random``'s, as
 ``jax.random.uniform(jax.random.PRNGKey(seed), (n, 2), jnp.float32)``.
 
 The matcher's hypotheses are driven by one pair-independent (H, 2) draw
@@ -12,34 +12,42 @@ element ``e`` of the flattened array is hashed from the 64-bit counter
 are the XOR of the two output words; the float is built from the top 23
 bits in [1, 2) and shifted to [0, 1). Element ``e`` depends on ``e``
 alone, so a draw of length ``n`` is a prefix of every longer draw.
+
+Training adds ``fold_in``, flax's ``fold_in_static`` (how a module path
+picks its dropout key), ``bernoulli`` and ``normal_tensor``. One block
+function serves every draw: int64 arithmetic masked to 32 bits, which runs
+alike on numpy arrays (the host's scalars) and on tensors (the dropout
+masks and the augmentation noise, drawn on the card). ``split``,
+``fold_in``, ``random_bits``, ``uniform_from``, ``randint`` and
+``bernoulli`` take one key or a batch of keys, an (..., 2) array of words;
+a tensor of keys draws on its device.
 """
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = np.uint32(0x1BD11BDA)
+_PARITY = 0x1BD11BDA
+_M32 = 0xFFFFFFFF
 
 
-def _rotl(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
-
-
-def threefry2x32(key: tuple[int, int], x0: np.ndarray,
-                 x1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """The 20-round Threefry-2x32 block function on uint32 word arrays."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+def threefry2x32(k0, k1, x0, x1):
+    """The 20-round Threefry-2x32 block function in int64 arithmetic masked
+    to 32 bits: the same code on numpy arrays and on tensors (on any
+    device), each holding uint32 words; keys broadcast against counters."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    with np.errstate(over="ignore"):
-        x0 = x0.astype(np.uint32) + ks[0]
-        x1 = x1.astype(np.uint32) + ks[1]
-        for i in range(5):
-            for r in _ROTATIONS[i % 2]:
-                x0 = x0 + x1
-                x1 = _rotl(x1, r) ^ x0
-            x0 = x0 + ks[(i + 1) % 3]
-            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
     return x0, x1
 
 
@@ -54,30 +62,66 @@ def key(seed: int) -> Key:
     return (0, int(seed))
 
 
-def _blocks(k: Key, n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Threefry of the 64-bit counters 0 .. n-1 under ``k``."""
-    e = np.arange(n, dtype=np.uint64)
-    return threefry2x32(k, (e >> np.uint64(32)).astype(np.uint32),
-                        (e & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+def _words(k):
+    """A key, or a batch of keys as an (..., 2) numpy array or tensor, as
+    int64 words (..., 2) of the same kind."""
+    if isinstance(k, torch.Tensor):
+        return k.to(torch.int64)
+    return np.asarray(k, np.int64)
 
 
-def split(k: Key, num: int = 2) -> list[Key]:
-    """``jax.random.split(k, num)``: key ``i`` is the block of counter i."""
-    y0, y1 = _blocks(k, num)
-    return [(int(a), int(b)) for a, b in zip(y0, y1)]
+def _single(k) -> bool:
+    return not isinstance(k, (np.ndarray, torch.Tensor))
 
 
-def random_bits(k: Key, shape: tuple[int, ...]) -> np.ndarray:
-    """32 random bits an element of ``shape`` (``jax.random.bits``)."""
-    y0, y1 = _blocks(k, int(np.prod(shape, dtype=np.int64)))
-    return (y0 ^ y1).reshape(shape)
+def _stack(kk, y0, y1):
+    return (torch.stack if isinstance(kk, torch.Tensor) else np.stack)(
+        [y0, y1], -1)
 
 
-def uniform_from(k: Key, shape: tuple[int, ...], minval: float = 0.0,
+def _blocks(kk, n: int):
+    """Threefry of the 64-bit counters 0 .. n-1 under each key of the words
+    ``kk`` (..., 2): two word arrays of shape ``kk.shape[:-1] + (n,)``."""
+    if isinstance(kk, torch.Tensor):
+        e = torch.arange(n, dtype=torch.int64, device=kk.device)
+    else:
+        e = np.arange(n, dtype=np.int64)
+    return threefry2x32(kk[..., :1], kk[..., 1:], e >> 32, e & _M32)
+
+
+def split(k, num: int = 2):
+    """``jax.random.split(k, num)``: key ``i`` is the block of counter i.
+    A list of keys for one key; (..., num, 2) words for a batch of keys."""
+    kk = _words(k)
+    y0, y1 = _blocks(kk, num)
+    if _single(k):
+        return [(int(a), int(b)) for a, b in zip(y0, y1)]
+    return _stack(kk, y0, y1)
+
+
+def random_bits(k, shape: tuple[int, ...]):
+    """32 random bits an element of ``shape`` (``jax.random.bits``) under
+    each key of ``k``: ``batch + shape`` uint32 in numpy, or int64 on the
+    device of a tensor of keys."""
+    kk = _words(k)
+    y0, y1 = _blocks(kk, int(np.prod(shape, dtype=np.int64)))
+    bits = (y0 ^ y1).reshape(tuple(kk.shape[:-1]) + tuple(shape))
+    return bits if isinstance(kk, torch.Tensor) else bits.astype(np.uint32)
+
+
+def _unit(bits):
+    """Floats in [0, 1) from the top 23 of 32 random bits, exactly."""
+    mant = (bits >> 9) | 0x3F800000
+    if isinstance(mant, torch.Tensor):
+        return mant.to(torch.int32).view(torch.float32) - 1.0
+    return mant.astype(np.uint32).view(np.float32) - np.float32(1.0)
+
+
+def uniform_from(k, shape: tuple[int, ...], minval: float = 0.0,
                  maxval: float = 1.0) -> np.ndarray:
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
-    mant = (random_bits(k, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
-    floats = mant.view(np.float32) - np.float32(1.0)
+    """``jax.random.uniform(k, shape, float32, minval, maxval)`` under
+    each key of ``k`` (numpy)."""
+    floats = _unit(random_bits(k, shape))
     lo, hi = np.float32(minval), np.float32(maxval)
     return np.maximum(lo, _fma32(floats, hi - lo, lo))
 
@@ -108,16 +152,18 @@ def uniform(seed: int, shape: tuple[int, ...]) -> np.ndarray:
     return uniform_from(key(seed), shape)
 
 
-def randint(k: Key, shape: tuple[int, ...], minval: int,
+def randint(k, shape: tuple[int, ...], minval: int,
             maxval: int) -> np.ndarray:
-    """``jax.random.randint(k, shape, minval, maxval)`` in int32: two
-    32-bit draws from the two halves of ``split(k)``, folded into the span
-    by JAX's modular arithmetic (its uint32 products wrap as JAX's do)."""
+    """``jax.random.randint(k, shape, minval, maxval)`` in int32 under each
+    key of ``k`` (numpy): two 32-bit draws from the two halves of
+    ``split(k)``, folded into the span by JAX's modular arithmetic (its
+    uint32 products wrap as JAX's do)."""
     lo_i, hi_i = np.int64(minval), np.int64(maxval)
     lo_i = np.clip(lo_i, -2 ** 31, 2 ** 31 - 1)
     hi_i = np.clip(hi_i, -2 ** 31, 2 ** 31 - 1)
-    k1, k2 = split(k)
-    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    halves = split(np.asarray(k, np.int64))
+    higher = random_bits(halves[..., 0, :], shape)
+    lower = random_bits(halves[..., 1, :], shape)
     span = np.uint32(1 if hi_i <= lo_i else (hi_i - lo_i) & 0xFFFFFFFF)
     with np.errstate(over="ignore"):
         mult = np.uint32(2 ** 16) % span
@@ -140,3 +186,72 @@ def categorical(k: Key, logits: np.ndarray) -> int:
     the Gumbel-max index (first index on ties, as ``argmax``)."""
     logits = np.asarray(logits, np.float32)
     return int(np.argmax(gumbel(k, logits.shape) + logits))
+
+
+def fold_in(k, data):
+    """``jax.random.fold_in(k, data)``: the block of the word pair ``(0,
+    data)``. A key for one key and an int; (..., 2) words where ``k`` is a
+    batch or ``data`` an array (broadcast against each other)."""
+    kk = _words(k)
+    if isinstance(kk, torch.Tensor):
+        d = torch.as_tensor(data, dtype=torch.int64, device=kk.device) & _M32
+    else:
+        d = np.asarray(data, np.int64) & _M32
+    y0, y1 = threefry2x32(kk[..., 0], kk[..., 1], d * 0, d)
+    if _single(k) and np.ndim(data) == 0:
+        return (int(y0), int(y1))
+    return _stack(kk, y0, y1)
+
+
+def fold_in_static(k: Key, data: tuple) -> Key:
+    """flax's ``_fold_in_static``: the first 4 bytes (big-endian) of the
+    SHA-1 of the strings (UTF-8) and ints (big-endian, fewest bytes) of
+    ``data``, folded into ``k``. A module's ``make_rng`` folds in its path
+    and its call count: ``("projection_head", "Dropout_0", 1)``."""
+    if not data:
+        return k
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return fold_in(k, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def bernoulli(k, p: float, shape: tuple[int, ...]):
+    """``jax.random.bernoulli(k, p, shape)``: float32 uniforms below
+    ``float32(p)``; a bool tensor on the keys' device for a tensor key."""
+    return _unit(random_bits(k, shape)) < np.float32(p)
+
+
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))   # normal's u
+
+
+# --- draws on a device ---------------------------------------------------
+
+def _on(keys, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(keys, np.int64).reshape(-1, 2),
+                           device=device)
+
+
+def random_bits_tensor(keys, n: int, device) -> torch.Tensor:
+    """(len(keys), n) int64 tensor on ``device``: row ``i`` is
+    ``random_bits(keys[i], (n,))``, computed there."""
+    return random_bits(_on(keys, device), (n,))
+
+
+def normal_tensor(keys, shape: tuple[int, ...], device) -> torch.Tensor:
+    """(len(keys),) + ``shape`` float32 standard normals on ``device``, row
+    ``i`` ``jax.random.normal(keys[i], shape)``: the uniform on (-1, 1) from
+    the top 23 bits (its scaling rounded once, through float64), then
+    ``sqrt(2) * erfinv(u)`` in float32. The bits are JAX's; ``erfinv`` may
+    differ from XLA's in the last place."""
+    kk = _on(keys, device)
+    floats = _unit(random_bits(kk, shape)).to(torch.float64)
+    lo = float(_NORMAL_LO)
+    span = float(np.float32(1.0) - _NORMAL_LO)
+    u = torch.clamp((floats * span + lo).to(torch.float32), min=lo)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))

@@ -1,10 +1,11 @@
 """Package-level checks of the PyTorch/CUDA port: it imports none of JAX,
-OpenCV, PIL, PyYAML, pandas, matplotlib or the JAX package (the card's
-machine lacks some, and the port carries its own codec, YAML reader and CSV
-writer), its public signatures and defaults equal the JAX package's, its
-kernel sources exist, its kernel wrappers never fall back to the plain
-version for a tensor that is not on the CPU, and its entry points run on
-the card unless the caller asks for the CPU."""
+flax, optax, OpenCV, PIL, PyYAML, pandas, matplotlib or the JAX package
+(the card's machine lacks some, and the port carries its own codec, YAML
+reader, CSV writer and optimizer), its public signatures and defaults
+equal the JAX package's, its kernel sources exist, its kernel wrappers
+never fall back to the plain version for a tensor that is not on the CPU,
+and its entry points run on the card unless the caller asks for the
+CPU."""
 
 import ast
 import importlib
@@ -32,8 +33,8 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = "multimodal_biometric_fingerprints_palms_tpu"
 PORT_PKG = "multimodal_biometric_fingerprints_palms_tpu_torch"
 # what neither the port nor the scripts that run it on the card may import
-FORBIDDEN = ("jax", "flax", "msgpack", "cv2", "PIL", "yaml", "pandas",
-             "matplotlib", "sklearn", JAX_PKG)
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "cv2", "PIL", "yaml",
+             "pandas", "matplotlib", "sklearn", JAX_PKG)
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__init__.py")
@@ -102,8 +103,18 @@ SLICE = {
     "features.runner": ["_overlay", "process_directory", "main"],
     "pipeline": ["run_all"],
     "classifier.data": ["collect_image_paths", "extract_id", "global_id_for",
+                        "FingerprintAugmentations", "two_view_batches",
                         "local_contrast_normalization",
                         "estimate_dominant_orientation", "preprocess_image"],
+    "classifier.augment_device": ["augment_batch"],
+    "models.losses": ["nt_xent_loss", "focal_tversky_loss", "dice_coeff",
+                      "dice_loss", "iou_score", "bce_with_logits"],
+    "train.schedule": ["cosine_warmup_schedule"],
+    "train.ssl_train": ["create_ssl_train_step", "init_ssl_state",
+                        "save_checkpoint", "load_checkpoint", "train_ssl",
+                        "train_ssl_device"],
+    "train.seg_train": ["collect_image_mask_paths", "_load_pair", "_augment",
+                        "train_from_config"],
     "classifier.pipeline": ["build_model", "main"],
     "classifier.sorter": ["main"],
     "clustering.kmeans": ["kmeans_plus_plus_init", "kmeans"],
@@ -396,7 +407,9 @@ def test_run_all_sorts_into_the_dataset_dir(tmp_path, monkeypatch):
     "clustering.metrics.silhouette_score_cosine",
     "clustering.metrics.davies_bouldin_index",
     "clustering.metrics.calinski_harabasz_index",
-    "clustering.metrics.evaluate_clustering"])
+    "clustering.metrics.evaluate_clustering",
+    "train.ssl_train.train_ssl", "train.ssl_train.train_ssl_device",
+    "train.seg_train.train_from_config"])
 def test_ssl_front_defaults_to_the_card_and_raises_without_one(
         entry, tmp_path, monkeypatch):
     """The SSL front's entry points run on the card unless the caller asks
@@ -427,7 +440,11 @@ def test_ssl_front_defaults_to_the_card_and_raises_without_one(
             "clustering.metrics.silhouette_score_cosine": (x, labels, 2),
             "clustering.metrics.davies_bouldin_index": (x, labels, 2),
             "clustering.metrics.calinski_harabasz_index": (x, labels, 2),
-            "clustering.metrics.evaluate_clustering": (x, labels, 2)}[entry]
+            "clustering.metrics.evaluate_clustering": (x, labels, 2),
+            "train.ssl_train.train_ssl": (None, lambda: iter([]), 1),
+            "train.ssl_train.train_ssl_device": (
+                None, np.zeros((2, 8, 8), np.uint8), 1),
+            "train.seg_train.train_from_config": (str(cfg),)}[entry]
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(*args, device=device)
@@ -717,7 +734,9 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
                                     "tools/morph_variants.py",
                                     "tools/matcher_rate.py",
                                     "tools/polyu_set.py",
-                                    "tools/gabor_eer_port.py"])
+                                    "tools/gabor_eer_port.py",
+                                    "tools/ssl_front_port.py",
+                                    "tools/ssl_train_port.py"])
 def test_card_scripts_import_nothing_of_the_jax_side(script):
     """The scripts that run on the card's machine import neither JAX, the
     JAX package nor the root ``bench.py`` (the JAX benchmark): the port has

@@ -187,26 +187,57 @@ def test_run_all_skip_ssl_end_to_end(trees):
         assert (root / "logs" / name).is_file()
 
 
-def test_run_all_without_skip_ssl_raises(tmp_path, monkeypatch):
-    """The SSL branch runs but does not train: with the default
-    ``train=True`` and no SSL checkpoint, ``run_all`` raises, naming ROADMAP
-    queue 1 item 4, before it writes a CSV or sorts anything."""
+def _raw_tree_and_config(tmp_path):
     from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
         encode_png)
     d = tmp_path / "dataset" / "DBII"
     d.mkdir(parents=True)
-    for name in ("1_1_1.png", "2_1_1.png"):
-        (d / name).write_bytes(encode_png(np.full((96, 96), 90, np.uint8)))
+    g = np.random.default_rng(0)
+    for name in ("1_1_1.png", "1_2_1.png", "2_1_1.png", "2_2_1.png"):
+        (d / name).write_bytes(encode_png(g.integers(60, 200, (96, 96),
+                                                     dtype=np.uint8)))
     cfg = tmp_path / "classifier.yml"
     cfg.write_text(
         f"paths:\n  root_dir: {tmp_path}\n  save_dir: ./save_models\n"
         "ssl:\n  dataset:\n    batch_size: 2\n    image_size: 64\n"
         "  model:\n    backbone: effnetv2_tiny\n    embedding_dim: 16\n"
         "    projection_hidden_dim: 16\n    projection_dim: 8\n"
+        "  training:\n    epochs: 1\n"
         "  clustering:\n    n_clusters: 2\n    pca_dim: 0\n")
+    return cfg
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the refusal where CUDA is not available")
+def test_run_all_without_skip_ssl_raises(tmp_path, monkeypatch):
+    """The SSL branch runs on the card by default: without CUDA,
+    ``run_all`` (``train=True``, no SSL checkpoint) raises before it trains,
+    writes a CSV or sorts anything."""
+    cfg = _raw_tree_and_config(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        pipeline.run_all(str(tmp_path / "dataset"), classifier_config=str(cfg),
-                         device="cpu")
-    assert not (tmp_path / "save_models" / "id_clusters.csv").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.run_all(str(tmp_path / "dataset"), classifier_config=str(cfg))
+    assert not (tmp_path / "save_models").exists()
     assert not (tmp_path / "dataset" / "sorted_dataset").exists()
+
+
+def test_run_all_trains_without_a_checkpoint(tmp_path, monkeypatch):
+    """``run_all(train=True, device="cpu")`` with no SSL checkpoint trains
+    one epoch of the tiny config (two steps of two images), writes
+    ``ssl_model_final.msgpack`` in the JAX payload's layout, then clusters
+    and sorts with the trained weights and runs the file stages."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.checkpoint import (
+        load_msgpack)
+    cfg = _raw_tree_and_config(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    res = pipeline.run_all(str(tmp_path / "dataset"),
+                           classifier_config=str(cfg), train=True,
+                           device="cpu")
+    payload = load_msgpack(tmp_path / "save_models" / "ssl_model_final.msgpack")
+    assert sorted(payload) == ["batch_stats", "params", "step"]
+    assert payload["step"] == 2
+    assert res["ssl"]["training"]["branch"] == "host"
+    assert res["ssl"]["num_images"] == 4
+    assert len(list((tmp_path / "dataset" / "sorted_dataset").rglob(
+        "*.png"))) == 4
+    assert res["catalog_rows"] == 4 and "matching" in res

@@ -61,3 +61,19 @@ def test_users_gallery_equals_bench_matching(n_min):
         assert ours[field].dtype == want.dtype
         assert ours[field].shape == want.shape == (12, 64) + want.shape[2:]
         np.testing.assert_array_equal(ours[field], want)
+
+
+@pytest.mark.parametrize("fam", range(8))
+def test_family_generator_equals_ssl_at_scale(fam):
+    """``family_params`` and ``family_render`` against
+    ``benchmarks/ssl_at_scale.py``'s: the same generator calls give the
+    same parameters and the same uint8 impressions, one family each."""
+    from benchmarks import ssl_at_scale as ref
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        N_FAMILIES, family_params, family_render)
+    assert N_FAMILIES == ref.N_FAMILIES
+    a, b = np.random.default_rng(fam), np.random.default_rng(fam)
+    pa, pb = family_params(a, fam), ref.family_params(b, fam)
+    assert pa == pb
+    for _ in range(2):
+        np.testing.assert_array_equal(family_render(a, pa), ref.render(b, pb))
