@@ -36,6 +36,14 @@ and drives the port's paths on the card:
   preprocessing, D in matching), holding 4 images against the port on the
   CPU from the same files, checking every output file, the JSON schema,
   ``roc.png`` and the EER bounds, and printing each stage's seconds;
+- the formats: every file of ``tests/fixtures/formats`` through the codec,
+  grey and RGB, against OpenCV's digests in ``expected.json`` (ms a file
+  by reader), then ``run_all`` over that 16-subject tree with 13 of its
+  prints stored as progressive and colour JPEG, TIFF (none, Deflate,
+  PackBits, LZW written by the port), 16-bit, palette and Adam7 PNG,
+  32-bit and RLE8 BMP and orientation-tagged PNG and TIFF, against its
+  twin tree: only the corrupt TIFF skipped, equal minutiae, masks and EER;
+  one ``visualize_orientation`` timed;
 - the gallery (``parallel/``): ``all_pairs_unique`` over 1,480 synthetic
   templates (``utils.synthetic.users_gallery``, 148 users x 10) at RANSAC
   300 with the cascade off, on, and on without its anchors (seconds,
@@ -1471,6 +1479,202 @@ def file_pipeline_phase(dev, build, card) -> dict:
                 reader=pre["reader"])
 
 
+# --- the formats: every image file the JAX package reads ---------------------
+
+FORMATS_DIR = ROOT / "tests" / "fixtures" / "formats"
+# the print fixtures (tools/format_fixtures.py) and what stands in for each
+# in the all-baseline twin run: the JPEGs their baseline twin, the lossless
+# files a PNG the port writes from their pixels
+FORMAT_PRINTS = ["progressive.jpg", "progressive_colour.jpg", "none.tif",
+                 "deflate.tif", "packbits.tif", "grey16.png", "palette.png",
+                 "adam7.png", "bmp32.bmp", "rle8.bmp", "exif_o6.png",
+                 "exif_o3.tif", "lzw.tif"]
+FORMAT_SUBJECTS = (1, 2, 3, 4)
+
+
+def _reader_kind(name: str) -> str:
+    """The reader a fixture exercises, for the per-format times."""
+    stem = Path(name).name
+    if name.startswith("prints/"):
+        return "print " + stem
+    if stem.startswith("jpeg_progressive"):
+        return "progressive JPEG"
+    if stem.startswith("jpeg_baseline"):
+        return "baseline colour JPEG"
+    return {".jpg": "JPEG (Exif)", ".png": "PNG", ".bmp": "BMP",
+            ".tif": "TIFF"}[Path(stem).suffix]
+
+
+def formats_phase(dev, build, card) -> dict:
+    """Every file of ``tests/fixtures/formats`` through the port's codec,
+    grey and RGB, held to OpenCV's digests in ``expected.json`` (times a
+    file by reader on the host); then ``pipeline.run_all(skip_ssl=True)``
+    on the card over a 16-subject tree whose subjects 1 to 4 hold the print
+    fixtures (progressive and colour JPEG, TIFF without compression, with
+    Deflate, PackBits, and LZW written by the port, 16-bit, palette and
+    Adam7 PNG, 32-bit and RLE8 BMP, a PNG and a TIFF turned by their
+    orientation), and over its twin tree (each JPEG's baseline twin, each
+    lossless file a PNG of its pixels, the LZW TIFF the JPEG it was
+    decoded from). Fails unless only the corrupt TIFF is skipped, each
+    format file's minutiae JSON and debug mask equal its twin's, and the
+    EERs and scores are equal. One ``visualize_orientation`` on a 320x256
+    print is timed too."""
+    import hashlib
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch import pipeline
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.orientation import (
+        compute_orientation_field)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing.visualize import (
+        visualize_orientation)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import (
+        image_codec as codec)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        blob_prints)
+
+    t_phase = time.perf_counter()
+    expected = json.loads((FORMATS_DIR / "expected.json").read_text())
+    times: dict = {}
+    bad = []
+    for name in sorted(expected):
+        data = (FORMATS_DIR / name).read_bytes()
+        t0 = time.perf_counter()
+        g = codec.decode_gray(data, name)
+        t1 = time.perf_counter()
+        c = codec.decode_rgb(data, name)
+        t2 = time.perf_counter()
+        times.setdefault(_reader_kind(name), []).append(
+            ((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        for kind, img in (("gray", g), ("rgb", c)):
+            want = expected[name][kind]
+            got = {"shape": list(img.shape), "sha256": hashlib.sha256(
+                np.ascontiguousarray(img).tobytes()).hexdigest()}
+            if got != want:
+                bad.append(f"{name} {kind}")
+    reader_ms = {k: {"files": len(v),
+                     "gray_ms": float(np.mean([a for a, _ in v])),
+                     "rgb_ms": float(np.mean([b for _, b in v]))}
+                 for k, v in sorted(times.items())}
+    print(f"  {len(expected)} fixture files decoded grey and RGB; "
+          f"{len(expected) - len({b.split()[0] for b in bad})} equal "
+          "OpenCV's digests")
+    for k, v in reader_ms.items():
+        print(f"    {k}: {v['files']} files, grey {v['gray_ms']:.2f} ms, "
+              f"RGB {v['rgb_ms']:.2f} ms a file (host, {card})")
+    if bad:
+        fail(f"formats: {len(bad)} decodes differ from OpenCV's, e.g. "
+             f"{bad[:3]}")
+
+    cwd = os.getcwd()
+    polyu_set = load_tool("polyu_set")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        trees = {"formats": root / "formats", "twins": root / "twins"}
+        files = polyu_set.write(trees["formats"], FILE_SUBJECTS)
+        shutil.copytree(trees["formats"] / "sorted_dataset",
+                        trees["twins"] / "sorted_dataset")
+        by_subject = {s: sorted(r for r in files
+                                if Path(r).name.split("_")[0] == str(s))
+                      for s in FORMAT_SUBJECTS}
+        slots = [by_subject[s][k] for k in range(4)
+                 for s in FORMAT_SUBJECTS][:len(FORMAT_PRINTS)]
+        placed = {}
+        for rel, kind in zip(slots, FORMAT_PRINTS):
+            stem = rel[:-4]
+            orig = trees["formats"] / "sorted_dataset" / rel
+            ext = Path(kind).suffix
+            if kind == "lzw.tif":
+                data = codec.encode_for("x.tif", codec.read_gray(orig))
+                twin, twin_ext = orig.read_bytes(), ".jpg"
+            else:
+                data = (FORMATS_DIR / "prints" / kind).read_bytes()
+                if ext == ".jpg":
+                    twin = (FORMATS_DIR / "prints" / f"base_{kind}").read_bytes()
+                    twin_ext = ".jpg"
+                else:
+                    twin = codec.encode_png(codec.decode_gray(data, kind))
+                    twin_ext = ".png"
+            for tree, payload, e in (("formats", data, ext),
+                                     ("twins", twin, twin_ext)):
+                d = trees[tree] / "sorted_dataset"
+                (d / rel).unlink()
+                (d / (stem + e)).write_bytes(payload)
+            placed[kind] = (stem, ext, twin_ext)
+        runs = {}
+        for tree, path in trees.items():
+            for k in build.LAUNCHES:
+                build.LAUNCHES[k] = 0
+            os.chdir(path)
+            try:
+                res, t_all = wall_s(lambda: pipeline.run_all(
+                    str(path), skip_ssl=True, demo_matching=False))
+            finally:
+                os.chdir(cwd)
+            runs[tree] = dict(res=res, t=t_all, launches=dict(build.LAUNCHES))
+        fmt, twn = runs["formats"]["res"], runs["twins"]["res"]
+        n_files = len(files) - 1                    # all but the corrupt TIFF
+        print(f"  run_all over the formats tree {runs['formats']['t']:.2f} s, "
+              f"over its twins {runs['twins']['t']:.2f} s: preprocessed "
+              f"{fmt['preprocessing']['num_images']} and "
+              f"{twn['preprocessing']['num_images']} of {len(files)} files; "
+              f"launches (formats tree) {runs['formats']['launches']}")
+        if not (fmt["catalog_rows"] == fmt["preprocessing"]["num_images"]
+                == fmt["features"]["num_images"] == n_files
+                == twn["preprocessing"]["num_images"]):
+            fail("formats: a file other than the corrupt TIFF was skipped")
+        unequal = []
+        for kind, (stem, ext, twin_ext) in placed.items():
+            sub, base = stem.rsplit("/", 1)
+            a = (trees["formats"] / "processed" / "minutiae" / sub
+                 / f"{base}_minutiae.json").read_text()
+            b = (trees["twins"] / "processed" / "minutiae" / sub
+                 / f"{base}_minutiae.json").read_text()
+            # a mask written as JPEG (a JPEG input's) is read back through
+            # its threshold
+            ma = codec.read_gray(trees["formats"] / "processed" / "debug" / sub
+                                 / "mask" / f"{base}{ext}") > 127
+            mb = codec.read_gray(trees["twins"] / "processed" / "debug" / sub
+                                 / "mask" / f"{base}{twin_ext}") > 127
+            n = len(json.loads(a))
+            if a != b or not np.array_equal(ma, mb):
+                unequal.append(kind)
+            print(f"    {kind:24s} {stem}{ext}: {n} minutiae, JSON and mask "
+                  f"{'equal' if kind not in unequal else 'DIFFER'} to the "
+                  f"twin's")
+        if unequal:
+            fail(f"formats: templates differ from their twins': {unequal}")
+        mf, mt = fmt["matching"], twn["matching"]
+        same = (mf["eer"] == mt["eer"]
+                and np.array_equal(mf["genuine_scores"], mt["genuine_scores"])
+                and np.array_equal(mf["impostor_scores"],
+                                   mt["impostor_scores"]))
+        print(f"  EER {mf['eer']:.4f} over the formats tree, {mt['eer']:.4f} "
+              f"over the twins; scores equal: {same}")
+        if not same:
+            fail("formats: EER or scores differ from the all-baseline run")
+
+    img = blob_prints([5], None, 320, 256)[0].astype(np.float32)
+    field = compute_orientation_field(torch.from_numpy(img)[None].to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vis = visualize_orientation(img, field.orientation[0],
+                                reliability_img=field.reliability[0],
+                                mask=torch.from_numpy(img > 0.3))
+    vis_ms = (time.perf_counter() - t0) * 1e3
+    if vis.shape != (320, 256, 3) or vis.dtype != np.uint8:
+        fail("formats: visualize_orientation output")
+    print(f"  visualize_orientation on a 320x256 print: {vis_ms:.1f} ms "
+          f"(host, {card})")
+    t_phase = time.perf_counter() - t_phase
+    print(f"  formats phase {t_phase:.1f} s")
+    return dict(launches=runs["formats"]["launches"], reader_ms=reader_ms,
+                run_all_s=runs["formats"]["t"], twin_run_all_s=runs["twins"]["t"],
+                eer=mf["eer"], visualize_orientation_ms=vis_ms,
+                seconds=t_phase)
+
+
 # --- the gallery: all-pairs scoring and 1:N identification --------------------
 
 # the README's all-pairs protocol, PolyU DBII's shape: 148 users x 10
@@ -1999,6 +2203,8 @@ def ssl_run_all_phase(dev, build, card) -> dict:
             "logs": all((root / "logs" / f).is_file() for f in (
                 "minutiae_stats.csv", "genuine_match_stats.csv", "roc.png")),
             "every kernel launched": all(v > 0 for v in launches.values()),
+            "embeddings_clusters.png": _figure_ok(
+                root / "results" / "img" / "embeddings_clusters.png"),
         }
         print("  checks: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
                                        for k, v in checks.items()))
@@ -2006,6 +2212,7 @@ def ssl_run_all_phase(dev, build, card) -> dict:
         bad = [k for k, v in checks.items() if not v]
         if bad:
             fail(f"run_all from a raw tree: {bad}")
+        figure = figure_timings(dev, ssl["embeddings"], card)
         g, imp = mat["genuine_scores"], mat["impostor_scores"]
         gap = float(g.mean() - imp.mean())
         print(f"  EER {mat['eer']:.4f} (<= 0.13), genuine mean {g.mean():.4f}, "
@@ -2039,7 +2246,81 @@ def ssl_run_all_phase(dev, build, card) -> dict:
     print(f"  stage seconds on {card}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in seconds.items()))
     return dict(run_all_s=t_all, seconds=seconds, launches=launches,
-                coassignment=agree, emb_err=emb_err, eer=mat["eer"])
+                coassignment=agree, emb_err=emb_err, eer=mat["eer"],
+                figure=figure)
+
+
+FIGURE_POINTS = (3000, 256)   # the JAX module's max_points, a 256-wide embedding
+TSNE_KL_RTOL = 0.05           # card vs CPU t-SNE: final KL divergence
+TSNE_TRUST_ATOL = 0.02        # and trustworthiness (k=5)
+
+
+def _figure_ok(path: Path) -> bool:
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        read_rgb)
+    return path.is_file() and read_rgb(path).shape == (720, 840, 3)
+
+
+def trustworthiness(x, y, k: int = 5) -> float:
+    """scikit-learn's ``trustworthiness`` in numpy (not on the card's
+    machine): how far the embedding's k nearest neighbours rank in the
+    input's neighbour order."""
+    import numpy as np
+    n = x.shape[0]
+    dx = ((x[:, None] - x[None]) ** 2).sum(-1)
+    np.fill_diagonal(dx, np.inf)
+    order = np.argsort(dx, axis=1, kind="stable")
+    ranks = np.empty_like(order)
+    ranks[np.arange(n)[:, None], order] = np.arange(1, n + 1)[None]
+    dy = ((y[:, None] - y[None]) ** 2).sum(-1)
+    np.fill_diagonal(dy, np.inf)
+    nn_y = np.argsort(dy, axis=1, kind="stable")[:, :k]
+    r = ranks[np.arange(n)[:, None], nn_y] - k
+    return float(1.0 - 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0))
+                 * np.maximum(r, 0).sum())
+
+
+def figure_timings(dev, embeddings, card) -> dict:
+    """The embedding figure's 2-D reduction (``classifier.visualize``):
+    t-SNE on the card at the phase's file count and at 3,000 256-wide
+    synthetic embeddings, each timed; the first held against the same call
+    on a CPU copy (t-SNE is chaotic: final KL within TSNE_KL_RTOL,
+    trustworthiness within TSNE_TRUST_ATOL, the bounds of
+    ``tests/test_torch_visualize.py``)."""
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.classifier import (
+        visualize as V)
+
+    x = np.asarray(embeddings, np.float32)
+    (card_pts, _), t_card = wall_s(lambda: V.embed_2d(x, "tsne", device=dev))
+    t0 = time.perf_counter()
+    cpu_pts, _ = V.embed_2d(x, "tsne", device="cpu")
+    t_cpu = time.perf_counter() - t0
+    xin = V.pca(torch.from_numpy(x), 50).numpy() if x.shape[1] > 50 else x
+    p = V.joint_probabilities(torch.from_numpy(xin),
+                              max(2, min(30, (x.shape[0] - 1) // 3)))
+    kl_card, kl_cpu = V.kl_divergence(card_pts, p), V.kl_divergence(cpu_pts, p)
+    tw_card = trustworthiness(xin, card_pts)
+    tw_cpu = trustworthiness(xin, cpu_pts)
+    rng = np.random.default_rng(0)
+    n, d = FIGURE_POINTS
+    centers = rng.normal(0, 1.5, (8, d))
+    big = (centers[rng.integers(0, 8, n)] + rng.normal(0, 1, (n, d))).astype(
+        np.float32)
+    (big_pts, _), t_big = wall_s(lambda: V.embed_2d(big, "tsne", device=dev))
+    print(f"  embedding figure's t-SNE: {x.shape[0]} files {t_card:.2f} s on "
+          f"the card ({t_cpu:.2f} s on the CPU port); {n} x {d} synthetic "
+          f"{t_big:.2f} s on the card ({card}); card vs CPU: KL "
+          f"{kl_card:.4f} vs {kl_cpu:.4f}, trustworthiness {tw_card:.4f} vs "
+          f"{tw_cpu:.4f}")
+    if (not np.isfinite(big_pts).all() or not np.isfinite(card_pts).all()
+            or abs(kl_card - kl_cpu) > TSNE_KL_RTOL * kl_cpu
+            or abs(tw_card - tw_cpu) > TSNE_TRUST_ATOL):
+        fail("embedding figure: the card's t-SNE against the CPU's")
+    return dict(files=int(x.shape[0]), tsne_s=t_card, tsne_cpu_s=t_cpu,
+                tsne_3000_s=t_big, kl=(kl_card, kl_cpu),
+                trustworthiness=(tw_card, tw_cpu))
 
 
 # --- training: SSL (host and device views), UNet++, run_all(train=True) -------
@@ -2951,6 +3232,14 @@ def main() -> None:
           "matching configuration):")
     fp = file_pipeline_phase(dev, build, card)
 
+    # 6b. every image file the JAX package reads, and a run over them
+    print("formats (tests/fixtures/formats through the codec; run_all over "
+          "a tree of progressive, colour, TIFF, PNG and BMP prints):")
+    fmts = formats_phase(dev, build, card)
+    print(json.dumps({"formats": {"card": card, **{
+        k: fmts[k] for k in ("reader_ms", "run_all_s", "twin_run_all_s",
+                             "eer", "visualize_orientation_ms", "seconds")}}}))
+
     # 7. the gallery: all-pairs scoring and 1:N identification
     from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
         create_mesh)
@@ -2992,7 +3281,7 @@ def main() -> None:
         "card": card, "ssl_forward": ssl_fwd, "unet": unet,
         "run_all_raw": {k: raw[k] for k in ("run_all_s", "seconds",
                                              "coassignment", "emb_err",
-                                             "eer")}}}))
+                                             "eer", "figure")}}}))
 
     # 14. training: SSL on host and device views, UNet++, run_all(train=True)
     print("training (train/, classifier.augment_device, run_all(train=True)):")
@@ -3056,6 +3345,11 @@ def main() -> None:
                                     "binarize", "morph")):
         stage = "matching" if counter == "match" else "preprocessing"
         k["file_pipeline_launches"] = fp["launches"][stage][counter]
+    # launches in run_all over the formats tree (counts set to 0 just
+    # before it and read just after)
+    for k, counter in zip(kernels, ("clahe", "cc", "thin", "match", "nlm",
+                                    "binarize", "morph")):
+        k["formats_launches"] = fmts["launches"][counter]
     # kernel D's launches in the gallery's all-pairs sweep with the cascade
     kernels[3]["gallery_launches"] = gal["launches"]
     # kernel C beyond one block's shared memory (the device-memory form)

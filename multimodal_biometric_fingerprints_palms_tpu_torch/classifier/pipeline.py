@@ -22,9 +22,13 @@ flax, so untrained embeddings, and the clusters built on them, differ from
 the JAX package's. ``ssl.model.freeze_backbone`` is read by neither
 trainer (the JAX package's ignores it too: ``ROADMAP.md`` queue 3).
 
-The JAX pipeline draws an embedding scatter with scikit-learn and
-matplotlib inside a ``try``; neither is on the card's machine, so the port
-logs one warning naming ``ROADMAP.md`` queue 1 item 2 and writes no figure.
+After the clustering report, the embedding scatter is drawn as the JAX
+pipeline draws it: ``ssl.visualization.method`` and ``max_points``, into
+``paths.figures_dir``/``embeddings_clusters.png``
+(``classifier/visualize.py``: the 2-D reduction in torch on ``device``, a
+numpy raster written through the port's codec, where the JAX package uses
+scikit-learn and matplotlib). As there, a figure that fails is logged as a
+warning and does not stop the pipeline; nothing retries it on the CPU.
 """
 
 from __future__ import annotations
@@ -224,9 +228,22 @@ def main(config_path: str | None = None, dataset_dirs=None,
     report["method"] = method
     with open(save_dir / "clustering_report_detailed.json", "w") as f:
         json.dump(report, f, indent=2)
-    logger.warning("embedding scatter not drawn: scikit-learn and matplotlib "
-                   "are not ported (ROADMAP.md queue 1, item 2)")
     lap("report")
+
+    # the embedding scatter (the JAX package's call; a failed figure is
+    # logged and never stops the pipeline)
+    vcfg = cfg.get("ssl.visualization", {})
+    try:
+        from .visualize import visualize_embeddings
+        figures_dir = Path(cfg.get("paths.figures_dir", "results/img"))
+        visualize_embeddings(
+            embeddings, labels, figures_dir / "embeddings_clusters.png",
+            method=vcfg.get("method", "tsne") if hasattr(vcfg, "get") else "tsne",
+            max_points=vcfg.get("max_points", 3000) if hasattr(vcfg, "get") else 3000,
+            device=device)
+    except Exception as e:  # the figure must never break the pipeline
+        logger.warning("embedding visualization failed: %s", e)
+    lap("figure")
 
     console_step("Per-ID aggregation")
     id_to_embeddings = defaultdict(list)

@@ -19,6 +19,13 @@ Reading goes through the repository's native loader where it builds (it
 needs libjpeg), else through the port's codec; a file the native loader
 fails on (a PNG, or a frame over 1024 pixels a side) is read through the
 codec, and only a file both fail on is logged as unreadable and skipped.
+The two read paths differ in one respect, as the JAX package's do: the
+codec turns an image by the EXIF orientation its file stores, as
+``cv2.imread`` does, and the native loader's C++ decoder, like the JAX
+package's, applies no orientation. The card's machine has no libjpeg, so
+the card always reads through the codec. Masks written with ``debug`` keep
+the input's file name, so a TIFF input's mask is a TIFF (LZW, horizontal
+predictor, as ``cv2.imwrite`` writes it).
 """
 
 from __future__ import annotations

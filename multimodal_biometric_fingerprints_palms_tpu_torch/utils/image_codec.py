@@ -1,33 +1,51 @@
 """The port's image codec, in numpy and ``zlib`` only: what OpenCV does for
-the JAX package's file runners.
+the JAX package's file runners. Reading gives ``cv2.imdecode(...,
+IMREAD_GRAYSCALE)`` or, for ``decode_rgb``, ``IMREAD_COLOR`` then
+``COLOR_BGR2RGB``: shape and pixels equal (``tests/test_torch_formats.py``
+holds every kind below against OpenCV).
 
-- JPEG decode: baseline sequential JPEG (SOF0/SOF1, 8-bit), 1 or 3 (YCbCr)
-  components with any sampling factors, interleaved or not, restart
-  markers. Only the luma component becomes pixels, as
-  ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives it, through libjpeg's
-  integer ``JDCT_ISLOW`` inverse DCT, so the pixels equal OpenCV's bit for
-  bit.
-- JPEG encode: 1 component (grey) or 3 (an (H, W, 3) array in OpenCV's BGR
-  order, coded YCbCr 4:4:4), the IJG tables scaled to the quality (95, as
-  ``cv2.imwrite``), the standard Huffman tables, libjpeg's integer
-  ``JDCT_ISLOW`` forward DCT, quantization and colour conversion: the file
-  is byte-equal to ``cv2.imwrite``'s (for colour, with 4:4:4 sampling).
-- PNG: read 8-bit grey, grey + alpha, RGB and RGBA, non-interlaced, all five
-  filters; write 8-bit grey and RGB (BGR order in, as OpenCV).
-- BMP: read 8-bit paletted and 24-bit uncompressed; write 8-bit grey.
+Read:
 
-Colour becomes grey as OpenCV's reader of each format makes it: the luma
-plane for JPEG, libpng's truncating 15-bit weights for PNG, OpenCV's
-rounding 14-bit weights for BMP.
+- JPEG, baseline (SOF0/SOF1) and progressive (SOF2, ``jpeg_progressive.py``),
+  Huffman-coded, 8-bit, 1 or 3 (YCbCr) components, any integral sampling
+  factors, interleaved or not, restart markers, tables defined between
+  scans. Grey is the luma plane through libjpeg's integer ``JDCT_ISLOW``
+  inverse DCT; colour adds libjpeg-turbo's fancy upsampling (h2v1, h2v2,
+  h1v2 triangle filters, box replication otherwise) and its fixed-point
+  ``ycc_rgb_convert``.
+- PNG of every colour type and bit depth (1, 2, 4, 8, 16), palette, Adam7
+  interlacing, all five filters: 16 bits cut to their high byte, low depths
+  scaled, alpha and ``tRNS`` dropped, colour to grey by libpng's
+  ``rgb_to_gray`` with OpenCV's weights.
+- BMP of 1, 4, 8 (palette; 4 and 8 also RLE), 16 (5-5-5, 5-6-5 bit
+  fields), 24 and 32 bits, rows either way up, as OpenCV's own reader;
+  also with the 12-byte OS/2 header (not at 16 bits, which OpenCV
+  refuses).
+- TIFF (``tiff.py``): strips or tiles, none, LZW, Deflate or PackBits,
+  predictors 1 and 2, 1 to 16 bits, grey, RGB, RGBA and palette, as
+  libtiff's RGBA reader gives them to OpenCV.
+- The EXIF orientation of JPEG (APP1), PNG (``eXIf``) and TIFF (tag 274)
+  files turns the pixels as OpenCV's readers turn them
+  (``orientation_tags.py``).
 
-Everything else (progressive or arithmetic-coded JPEG, TIFF, other
-formats) raises ``ImageFormatError`` naming the file and the format.
+Write: baseline JPEG of grey or BGR (4:4:4) at quality 95, PNG of grey or
+BGR, 8-bit grey BMP, and TIFF of grey or BGR (LZW, horizontal predictor,
+OpenCV's strip height); the JPEG and TIFF files are byte-equal to
+``cv2.imwrite``'s.
 
-The Huffman decoder runs vectorised over every bit position of the scan:
-where the AC symbol that would start there ends, and where the symbol
-after it ends (pointer doubling), so that the walk from one block to the
-next takes a lookup per two symbols in Python; the coefficients are then
-read for all blocks at once (no loop over coefficients).
+Refused, with ``ImageFormatError`` naming the file and the kind:
+arithmetic-coded, lossless, hierarchical and 12-bit JPEG, CMYK and YCCK
+(4-component) and RGB-coded 3-component JPEG; a progressive JPEG whose
+scans stop early (libjpeg would show it smoothed); TIFF with JPEG, CCITT
+or any other compression, float or signed samples, LSB-first bit order or
+another photometric interpretation; every other format (GIF, WebP, ...).
+
+``codec_base.py`` holds what the codec's modules share (the error, the
+zigzag order, the bit windows). The baseline Huffman decoder runs vectorised over every bit position of
+the scan: where the AC symbol that would start there ends, and where the
+symbol after it ends (pointer doubling), so that the walk from one block
+to the next takes a lookup per two symbols in Python; the coefficients are
+then read for all blocks at once (no loop over coefficients).
 """
 
 from __future__ import annotations
@@ -39,19 +57,13 @@ from pathlib import Path
 
 import numpy as np
 
-
-class ImageFormatError(ValueError):
-    """An image file the codec cannot read or write."""
-
+from .codec_base import ZIGZAG, ImageFormatError, bit_windows
+from .jpeg_progressive import check_complete, decode_progressive_scan
+from .orientation_tags import (
+    apply_orientation, jpeg_orientation, png_orientation)
+from .tiff import TIFF_SIGNATURES, decode_tiff, encode_tiff
 
 # --- JPEG tables -----------------------------------------------------------
-
-# zigzag position -> natural (row-major) index in the 8x8 block
-ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 # IJG base quantization tables (natural order), JPEG standard Annex K.1
 _STD_LUMA_Q = np.array([
@@ -94,7 +106,7 @@ _F = dict(
     f2_053119869=16819, f2_562915447=20995, f3_072711026=25172)
 
 _SOF_NAMES = {
-    0xC2: "progressive JPEG", 0xC3: "lossless JPEG",
+    0xC3: "lossless JPEG",
     0xC5: "hierarchical JPEG", 0xC6: "hierarchical progressive JPEG",
     0xC7: "hierarchical lossless JPEG", 0xC9: "arithmetic-coded JPEG",
     0xCA: "arithmetic-coded progressive JPEG",
@@ -186,18 +198,6 @@ def _scan_segments(data: bytes, start: int) -> tuple[list[bytes], int]:
             segments.append(b"".join(pieces))
             return segments, f
     raise ImageFormatError("JPEG scan without an end marker")
-
-
-def _windows(stream: np.ndarray, npos: int) -> np.ndarray:
-    """The 16 bits starting at every bit position 0..npos+31 of ``stream``
-    (zero bits past its end)."""
-    nbytes = (npos + 47) // 8 + 1
-    b = np.zeros(nbytes + 3, np.uint32)
-    b[:min(len(stream), nbytes)] = stream[:nbytes]
-    w24 = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
-    shifts = np.arange(8, 0, -1, dtype=np.uint32)
-    win = (w24[:, None] >> shifts[None, :]) & 0xFFFF
-    return win.reshape(-1)[:npos + 32].astype(np.intp)
 
 
 class _AcJumps:
@@ -293,24 +293,73 @@ def _idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
 
 
 class _Frame:
-    """What the markers before and between scans set up."""
+    """What the markers before and between scans set up, and the
+    coefficients the scans decode."""
 
-    def __init__(self):
+    def __init__(self, want: str):
+        self.want = want            # "luma" or "all" components
         self.qt: dict[int, np.ndarray] = {}
         self.dc: dict[int, _HuffLut] = {}
         self.ac: dict[int, _HuffLut] = {}
         self.restart = 0
         self.size = None            # (H, W)
         self.comps = []             # [(id, h, v, tq)]
+        self.progressive = False
         self.adobe_transform = None
         self.jfif = False
-        self.y_coef = None          # (blocks_y, blocks_x, 64) int32
-        self.y_tq = None            # the luma component's table
+        self.coef = {}              # component -> (gy, gx, 64) int32
+        self.coef_bits = {}         # component -> last Al of each term
+        self.latched = {}           # component -> its table at first scan
+
+    def start(self, size, comps, progressive: bool) -> None:
+        self.size, self.comps, self.progressive = size, comps, progressive
+        h, w = size
+        hmax = max(c[1] for c in comps)
+        vmax = max(c[2] for c in comps)
+        my, mx = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+        self.coef = {ci: np.zeros((my * c[2], mx * c[1], 64), np.int32)
+                     for ci, c in enumerate(comps)}
+
+    def wanted(self, ci: int) -> bool:
+        return ci == 0 or self.want == "all"
+
+    def comp_blocks(self, ci: int) -> tuple[int, int]:
+        """(rows, columns) of a component's own blocks, which a scan of it
+        alone covers (the MCU-padded grid holds more)."""
+        h, w = self.size
+        _, ch, cv, _ = self.comps[ci]
+        hmax = max(c[1] for c in self.comps)
+        vmax = max(c[2] for c in self.comps)
+        return -(-(-(-h * cv // vmax)) // 8), -(-(-(-w * ch // hmax)) // 8)
+
+    def mcu_layout(self, scan) -> tuple[int, list, tuple]:
+        """(MCU count, the blocks of one MCU as scan entries, the MCU grid):
+        a scan of one component walks its own blocks one at a time."""
+        if len(scan) == 1:
+            bh, bw = self.comp_blocks(scan[0][0])
+            return bw * bh, [scan[0]], (bh, bw)
+        h, w = self.size
+        hmax = max(c[1] for c in self.comps)
+        vmax = max(c[2] for c in self.comps)
+        mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+        pattern = [s for s in scan for _ in range(self.comps[s[0]][1]
+                                                  * self.comps[s[0]][2])]
+        return mx * my, pattern, (my, mx)
+
+    def latch(self, ci: int) -> None:
+        """libjpeg keeps the quantization table a component has when its
+        first scan starts (``latch_quant_tables``)."""
+        if ci not in self.latched:
+            tq = self.comps[ci][3]
+            if tq not in self.qt:
+                raise ImageFormatError("undefined quantization table")
+            self.latched[ci] = self.qt[tq].copy()
 
 
-def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
+def _scan_header(fr: _Frame, data: bytes, hdr: int, length: int):
+    """The scan's [(component, dc table, ac table)] and (Ss, Se, Ah, Al)."""
     ns = data[hdr]
-    if length != 6 + 2 * ns:
+    if length != 6 + 2 * ns or ns == 0:
         raise ImageFormatError("bad SOS length")
     ids = [c[0] for c in fr.comps]
     scan = []
@@ -320,28 +369,33 @@ def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
             raise ImageFormatError("scan names an unknown component")
         scan.append((ids.index(cid), tables >> 4, tables & 15))
     ss, se, a = data[hdr + 1 + 2 * ns:hdr + 4 + 2 * ns]
-    if (ss, se, a) != (0, 63, 0):
-        raise ImageFormatError("not a baseline sequential scan")
-    segments, end = _scan_segments(data, hdr + length - 2)
+    return scan, (ss, se, a >> 4, a & 15)
 
-    hmax = max(c[1] for c in fr.comps)
-    vmax = max(c[2] for c in fr.comps)
-    h, w = fr.size
-    if len(scan) == 1:
-        ci = scan[0][0]
-        _, ch, cv, _ = fr.comps[ci]
-        bw = -(-(-(-w * ch // hmax)) // 8)
-        bh = -(-(-(-h * cv // vmax)) // 8)
-        n_mcu, pattern = bw * bh, [scan[0]]
-        grid = (bh, bw)
+
+def _place(fr: _Frame, ci: int, coef: np.ndarray, grid, interleaved: bool):
+    """Write a component's decoded blocks, in scan order, into its grid."""
+    gy, gx = grid
+    if not interleaved:
+        fr.coef[ci][:gy, :gx] = coef.reshape(gy, gx, 64)
     else:
-        mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
-        n_mcu = mx * my
-        pattern = [s for s in scan for _ in range(fr.comps[s[0]][1]
-                                                   * fr.comps[s[0]][2])]
-        grid = (my, mx)
-    if 0 not in [s[0] for s in scan]:
-        return end                   # no luma in this scan: skip decoding
+        _, ch, cv, _ = fr.comps[ci]
+        fr.coef[ci][:] = coef.reshape(gy, gx, cv, ch, 64).transpose(
+            0, 2, 1, 3, 4).reshape(gy * cv, gx * ch, 64)
+
+
+def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
+    scan, (ss, se, ah, al) = _scan_header(fr, data, hdr, length)
+    segments, end = _scan_segments(data, hdr + length - 2)
+    for ci, _, _ in scan:
+        fr.latch(ci)
+    if not any(fr.wanted(ci) for ci, _, _ in scan):
+        return end                   # no wanted component: skip decoding
+    if fr.progressive:
+        decode_progressive_scan(fr, scan, (ss, se, ah, al), segments)
+        return end
+    if (ss, se, ah, al) != (0, 63, 0, 0):
+        raise ImageFormatError("not a baseline sequential scan")
+    n_mcu, pattern, grid = fr.mcu_layout(scan)
     for _, td, ta in scan:
         if td not in fr.dc or ta not in fr.ac:
             raise ImageFormatError("scan uses an undefined Huffman table")
@@ -350,7 +404,7 @@ def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
     seg_start = np.cumsum([0] + [8 * len(s) for s in seg_bytes]).tolist()
     stream = np.concatenate(seg_bytes) if seg_bytes else np.zeros(0, np.uint8)
     npos = 8 * len(stream) + 1
-    win = _windows(stream, npos)
+    win = bit_windows(stream, npos)
     ac = {ta: _AcJumps(fr.ac[ta], win, npos) for _, _, ta in scan}
 
     # walk the blocks: one DC symbol and one jump chain per block
@@ -371,13 +425,21 @@ def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
             seg_of[b] = seg
             pos = jumps.block_end(pos + dc_step.item(win.item(pos)))
             b += 1
+    starts = np.asarray(starts)
+    seg_of = np.asarray(seg_of)
+    for ci, td, ta in scan:
+        if fr.wanted(ci):
+            is_c = np.array([s[0] == ci for s in pattern] * n_mcu)
+            coef = _decode_blocks(win, starts[is_c], seg_of[is_c],
+                                  fr.dc[td], fr.ac[ta])
+            _place(fr, ci, coef, grid, len(scan) > 1)
+    return end
 
-    # luma blocks only from here on
-    is_y = np.array([s[0] == 0 for s in pattern] * n_mcu)
-    td_y, ta_y = next((td, ta) for ci, td, ta in pattern if ci == 0)
-    s_y = np.asarray(starts)[is_y]
-    seg_y = np.asarray(seg_of)[is_y]
-    dl = fr.dc[td_y]
+
+def _decode_blocks(win, s_y, seg_y, dl: _HuffLut, al: _HuffLut) -> np.ndarray:
+    """(N, 64) natural-order coefficients of one component's blocks of a
+    baseline scan, given where each block's bits start, for all blocks at
+    once; the DC prediction restarts with each segment."""
     wv = win[s_y]
     if dl.bad[wv].any() or (dl.sym[wv] > 11).any():
         raise ImageFormatError("bad Huffman code in JPEG scan")
@@ -393,7 +455,6 @@ def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
     nb = len(s_y)
     coef = np.zeros((nb, 64), np.int32)
     coef[:, 0] = dc
-    al = fr.ac[ta_y]
     pos = s_y + length + size
     k = np.ones(nb, np.intp)
     act = np.arange(nb)
@@ -415,25 +476,14 @@ def _decode_scan(fr: _Frame, data: bytes, hdr: int, length: int) -> int:
         k[act] = kk + 1
         pos[act] = p + length + size
         act = act[k[act] < 64]
-
-    # place the blocks in the luma plane's block grid
-    gy, gx = grid
-    if len(scan) == 1:
-        fr.y_coef = coef.reshape(gy, gx, 64)
-    else:
-        _, yh, yv, _ = fr.comps[0]
-        fr.y_coef = coef.reshape(gy, gx, yv, yh, 64).transpose(
-            0, 2, 1, 3, 4).reshape(gy * yv, gx * yh, 64)
-    fr.y_tq = fr.comps[0][3]
-    return end
+    return coef
 
 
-def decode_jpeg_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 luma of a baseline JPEG, equal to OpenCV's
-    ``IMREAD_GRAYSCALE``."""
+def _read_jpeg(data: bytes, name: str, want: str) -> _Frame:
+    """Parse a JPEG file and decode the scans of the wanted components."""
     if data[:2] != b"\xff\xd8":
         raise ImageFormatError(f"{name}: not a JPEG file")
-    fr = _Frame()
+    fr = _Frame(want)
     i = 2
     while True:
         while i < len(data) and data[i] != 0xFF:
@@ -456,27 +506,38 @@ def decode_jpeg_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
             raise ImageFormatError(f"{name}: truncated JPEG")
         if m in _SOF_NAMES:
             raise ImageFormatError(
-                f"{name}: {_SOF_NAMES[m]} is not supported (baseline only)")
-        if m in (0xC0, 0xC1):
+                f"{name}: {_SOF_NAMES[m]} is not supported (baseline and "
+                "progressive Huffman-coded JPEG only)")
+        if m in (0xC0, 0xC1, 0xC2):
+            if fr.size is not None:
+                raise ImageFormatError(f"{name}: JPEG with two frame headers")
             if seg[0] != 8:
                 raise ImageFormatError(
                     f"{name}: {seg[0]}-bit JPEG is not supported")
             h, w, nf = struct.unpack(">HHB", seg[1:6])
             if h == 0 or w == 0:
                 raise ImageFormatError(f"{name}: JPEG without a frame size")
+            if nf == 4:
+                raise ImageFormatError(
+                    f"{name}: 4-component (CMYK or YCCK) JPEG is not "
+                    "supported")
             if nf not in (1, 3):
                 raise ImageFormatError(
                     f"{name}: JPEG with {nf} components is not supported")
-            fr.size = (h, w)
-            fr.comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
-                         seg[7 + 3 * c] & 15, seg[8 + 3 * c])
-                        for c in range(nf)]
-            if any(not (1 <= c[1] <= 4 and 1 <= c[2] <= 4) for c in fr.comps):
+            comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
+                      seg[7 + 3 * c] & 15, seg[8 + 3 * c])
+                     for c in range(nf)]
+            if any(not (1 <= c[1] <= 4 and 1 <= c[2] <= 4) for c in comps):
                 raise ImageFormatError(f"{name}: bad sampling factors")
-            if (fr.comps[0][1] != max(c[1] for c in fr.comps)
-                    or fr.comps[0][2] != max(c[2] for c in fr.comps)):
+            hmax = max(c[1] for c in comps)
+            vmax = max(c[2] for c in comps)
+            if any(hmax % c[1] or vmax % c[2] for c in comps):
+                raise ImageFormatError(
+                    f"{name}: fractional sampling factors are not supported")
+            if (comps[0][1], comps[0][2]) != (hmax, vmax):
                 raise ImageFormatError(
                     f"{name}: luma sampled below chroma is not supported")
+            fr.start((h, w), comps, m == 0xC2)
         elif m == 0xC4:
             j = 0
             while j < len(seg):
@@ -514,18 +575,108 @@ def decode_jpeg_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 raise ImageFormatError(f"{name}: {e}") from None
             continue
         i += length
-    if fr.y_coef is None:
+    if fr.size is None or not fr.latched:
         raise ImageFormatError(f"{name}: JPEG without image data")
     if len(fr.comps) == 3 and not _is_ycbcr(fr):
         raise ImageFormatError(
             f"{name}: RGB-coded 3-component JPEG is not supported")
-    if fr.y_tq not in fr.qt:
-        raise ImageFormatError(f"{name}: undefined quantization table")
-    gy, gx, _ = fr.y_coef.shape
-    px = _idct_islow(fr.y_coef.reshape(-1, 64), fr.qt[fr.y_tq])
-    img = px.reshape(gy, gx, 8, 8).transpose(0, 2, 1, 3).reshape(gy * 8, gx * 8)
+    if fr.progressive:
+        try:
+            check_complete(fr)
+        except ImageFormatError as e:
+            raise ImageFormatError(f"{name}: {e}") from None
+    return fr
+
+
+def _component_plane(fr: _Frame, ci: int) -> np.ndarray:
+    """The samples of a component: its blocks through the inverse DCT,
+    cut to the component's own size."""
+    gy, gx, _ = fr.coef[ci].shape
+    px = _idct_islow(fr.coef[ci].reshape(-1, 64), fr.latched[ci])
+    plane = px.reshape(gy, gx, 8, 8).transpose(0, 2, 1, 3).reshape(
+        gy * 8, gx * 8)
     h, w = fr.size
-    return np.ascontiguousarray(img[:h, :w])
+    _, ch, cv, _ = fr.comps[ci]
+    hmax = max(c[1] for c in fr.comps)
+    vmax = max(c[2] for c in fr.comps)
+    return plane[:-(-h * cv // vmax), :-(-w * ch // hmax)]
+
+
+def decode_jpeg_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W) uint8 luma of a baseline or progressive JPEG, equal to
+    OpenCV's ``IMREAD_GRAYSCALE`` before the EXIF orientation is applied."""
+    fr = _read_jpeg(data, name, "luma")
+    return np.ascontiguousarray(_component_plane(fr, 0))
+
+
+def _fancy_pairs(p: np.ndarray, axis: int, bias_lo: int, bias_hi: int,
+                 shift: int) -> np.ndarray:
+    """libjpeg's triangle filter along ``axis``: each sample becomes two,
+    (3 * near + far + bias) >> shift with the far neighbour before it
+    (``bias_lo``) and after it (``bias_hi``), the edge sample standing in
+    for its missing neighbour."""
+    n = p.shape[axis]
+    lo = np.take(p, np.r_[0, np.arange(n - 1)], axis=axis)
+    hi = np.take(p, np.r_[np.arange(1, n), n - 1], axis=axis)
+    a = (3 * p + lo + bias_lo) >> shift
+    b = (3 * p + hi + bias_hi) >> shift
+    out = np.stack([a, b], axis=axis + 1)
+    shape = list(p.shape)
+    shape[axis] *= 2
+    return out.reshape(shape)
+
+
+def _upsample(plane: np.ndarray, hf: int, vf: int, size) -> np.ndarray:
+    """libjpeg-turbo's ``jdsample.c`` with fancy upsampling on (its
+    default): h2v1 and h2v2 triangle filters where the component is wider
+    than 2 samples, h1v2 always, box replication for every other integral
+    factor."""
+    h, w = size
+    p = plane.astype(np.int64)
+    dw = plane.shape[1]
+    if (hf, vf) == (1, 1):
+        out = p
+    elif (hf, vf) == (2, 1) and dw > 2:
+        out = _fancy_pairs(p, 1, 1, 2, 2)
+    elif (hf, vf) == (1, 2):
+        out = _fancy_pairs(p, 0, 1, 2, 2)
+    elif (hf, vf) == (2, 2) and dw > 2:
+        n = p.shape[0]
+        up = p[np.r_[0, np.arange(n - 1)]]
+        dn = p[np.r_[np.arange(1, n), n - 1]]
+        colsum = np.stack([3 * p + up, 3 * p + dn], axis=1).reshape(
+            2 * n, -1)
+        out = _fancy_pairs(colsum, 1, 8, 7, 4)
+    else:
+        out = np.repeat(np.repeat(p, vf, axis=0), hf, axis=1)
+    return out[:h, :w]
+
+
+def _ycc_rgb(y, cb, cr) -> np.ndarray:
+    """libjpeg's ``ycc_rgb_convert``: 16-bit fixed-point tables, R and B
+    rounded in the table, G's two products summed then shifted."""
+    half = 1 << 15
+    x_cb, x_cr = cb - 128, cr - 128
+    r = y + ((91881 * x_cr + half) >> 16)
+    g = y + ((-22554 * x_cb + half - 46802 * x_cr) >> 16)
+    b = y + ((116130 * x_cb + half) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a baseline or progressive JPEG, equal to
+    OpenCV's ``IMREAD_COLOR`` (then ``COLOR_BGR2RGB``) before the EXIF
+    orientation is applied: a grey file repeats its grey; a YCbCr file's
+    chroma is upsampled and converted as libjpeg-turbo does."""
+    fr = _read_jpeg(data, name, "all")
+    y = _component_plane(fr, 0)
+    if len(fr.comps) == 1:
+        return np.repeat(y[..., None], 3, axis=2)
+    hmax = max(c[1] for c in fr.comps)
+    vmax = max(c[2] for c in fr.comps)
+    planes = [_upsample(_component_plane(fr, ci), hmax // fr.comps[ci][1],
+                        vmax // fr.comps[ci][2], fr.size) for ci in range(3)]
+    return _ycc_rgb(*planes)
 
 
 def _is_ycbcr(fr: _Frame) -> bool:
@@ -816,52 +967,123 @@ def _png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
+    """(h, stride) bytes of ``depth``-bit samples (MSB first) as (h, n)
+    integer samples."""
+    if depth == 8:
+        return rows[:, :n].astype(np.int64)
+    if depth == 16:
+        return rows[:, :2 * n].reshape(rows.shape[0], n, 2).astype(
+            np.int64) @ np.array([256, 1])
+    per = 8 // depth
+    shifts = np.arange(per - 1, -1, -1) * depth
+    s = (rows.astype(np.int64)[..., None] >> shifts) & ((1 << depth) - 1)
+    return s.reshape(rows.shape[0], -1)[:, :n]
+
+
+class _Png:
+    """A PNG's samples, (H, W, channels) integers of its bit depth, and
+    what the reader needs beside them."""
+
+    def __init__(self, data: bytes, name: str):
+        if data[:8] != _PNG_SIG:
+            raise ImageFormatError(f"{name}: not a PNG file")
+        i, idat, hdr, self.palette = 8, [], None, None
+        while i + 8 <= len(data):
+            n, kind = struct.unpack(">I4s", data[i:i + 8])
+            body = data[i + 8:i + 8 + n]
+            if kind == b"IHDR":
+                hdr = struct.unpack(">IIBBBBB", body)
+            elif kind == b"PLTE":
+                self.palette = np.frombuffer(body[:len(body) // 3 * 3],
+                                             np.uint8).reshape(-1, 3)
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"IEND":
+                break
+            i += 12 + n
+        if hdr is None:
+            raise ImageFormatError(f"{name}: PNG without IHDR")
+        w, h, depth, ctype, _, _, interlace = hdr
+        channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+        allowed = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+                   4: (8, 16), 6: (8, 16)}.get(ctype, ())
+        if channels is None or depth not in allowed or interlace > 1:
+            raise ImageFormatError(
+                f"{name}: PNG with bit depth {depth}, colour type {ctype}, "
+                f"interlace {interlace} is not a valid PNG")
+        if ctype == 3 and self.palette is None:
+            raise ImageFormatError(f"{name}: palette PNG without PLTE")
+        self.depth, self.ctype = depth, ctype
+        try:
+            raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        except zlib.error as e:
+            raise ImageFormatError(f"{name}: corrupt PNG data: {e}") from None
+        bpp = max(1, channels * depth // 8)
+        passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+        out = np.zeros((h, w, channels), np.int64)
+        at = 0
+        for x0, y0, dx, dy in passes:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            stride = -(-(pw * channels * depth) // 8)
+            if raw.size < at + ph * (stride + 1):
+                raise ImageFormatError(f"{name}: truncated PNG data")
+            rows = _png_unfilter(raw[at:at + ph * (stride + 1)], ph, stride,
+                                 bpp)
+            at += ph * (stride + 1)
+            out[y0::dy, x0::dx] = _unpack_bits(
+                rows, depth, pw * channels).reshape(ph, pw, channels)
+        self.samples = out
+
+
+def _png_rgb(png: _Png):
+    """(samples, bit depth) with palette indices replaced by their RGB
+    (libpng's ``png_set_palette_to_rgb``) and grey of 1, 2 or 4 bits
+    scaled to 8 (``png_set_expand_gray_1_2_4_to_8``)."""
+    s = png.samples
+    if png.ctype == 3:
+        pal = np.zeros((256, 3), np.int64)
+        pal[:len(png.palette)] = png.palette
+        return pal[s[..., 0]], 8
+    if png.depth < 8:
+        return s * (255 // ((1 << png.depth) - 1)), 8
+    return s, png.depth
+
+
+def _png_to_8(s: np.ndarray, depth: int) -> np.ndarray:
+    """16-bit samples to 8 as libpng's ``png_set_strip_16`` does: the high
+    byte."""
+    return (s >> 8 if depth == 16 else s).astype(np.uint8)
+
+
 def _png_pixels(data: bytes, name: str) -> np.ndarray:
-    """(H, W, channels) uint8 samples of an 8-bit non-interlaced PNG."""
-    if data[:8] != _PNG_SIG:
-        raise ImageFormatError(f"{name}: not a PNG file")
-    i, idat, hdr = 8, [], None
-    while i + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[i:i + 8])
-        body = data[i + 8:i + 8 + n]
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        i += 12 + n
-    if hdr is None:
-        raise ImageFormatError(f"{name}: PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
-    if depth != 8 or channels is None or interlace:
-        raise ImageFormatError(
-            f"{name}: PNG with bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace} is not supported (8-bit grey, grey + "
-            f"alpha, RGB or RGBA, non-interlaced only)")
-    try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    except zlib.error as e:
-        raise ImageFormatError(f"{name}: corrupt PNG data: {e}") from None
-    if raw.size < h * (w * channels + 1):
-        raise ImageFormatError(f"{name}: truncated PNG data")
-    return _png_unfilter(raw[:h * (w * channels + 1)], h, w * channels,
-                         channels).reshape(h, w, channels)
+    """(H, W, channels) uint8 samples of a PNG: palette expanded to RGB,
+    low bit depths scaled to 8, 16 bits cut to 8 (alpha kept)."""
+    s, depth = _png_rgb(_Png(data, name))
+    return _png_to_8(s, depth)
 
 
 def decode_png_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 grey of an 8-bit PNG, as OpenCV's ``IMREAD_GRAYSCALE``
-    gives it: libpng's ``rgb_to_gray`` with OpenCV's weights 0.299 and
-    0.587 (29900 * 32768 // 100000 and 58700 * 32768 // 100000 of 32768,
-    the rest blue), truncated, grey pixels kept; alpha dropped."""
-    px = _png_pixels(data, name)
-    channels = px.shape[2]
-    if channels <= 2:
-        return np.ascontiguousarray(px[..., 0])
-    r, g, b = (px[..., c].astype(np.int64) for c in range(3))
-    gray = (9797 * r + 19234 * g + 3737 * b) >> 15
-    return np.where((r == g) & (r == b), r, gray).astype(np.uint8)
+    """(H, W) uint8 grey of a PNG, as OpenCV's ``IMREAD_GRAYSCALE`` gives
+    it before the EXIF orientation: libpng's ``rgb_to_gray`` with OpenCV's
+    weights 0.299 and 0.587 (29900 * 32768 // 100000 and 58700 * 32768 //
+    100000 of 32768, the rest blue), truncated, at the file's bit depth
+    (a palette's entries at 8), grey pixels kept; then 16 bits to 8; alpha
+    dropped."""
+    png = _Png(data, name)
+    s, depth = _png_rgb(png)
+    if s.shape[2] <= 2 and png.ctype != 3:
+        return _png_to_8(s[..., 0], depth)
+    r, g, b = s[..., 0], s[..., 1], s[..., 2]
+    gray = (9797 * r + 19234 * g + 3737 * b + (16384 if depth == 16 else 0)
+            ) >> 15
+    return _png_to_8(np.where((r == g) & (r == b), r, gray), depth)
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:
@@ -897,54 +1119,171 @@ def _bgr_to_gray_cv(b, g, r):
              + 4899 * r.astype(np.int64) + 8192) >> 14).astype(np.uint8)
 
 
+def _rle_indices(data: bytes, at: int, w: int, h: int, bpp: int,
+                 name: str) -> np.ndarray:
+    """(H, W) palette indices of an RLE8 or RLE4 BMP, in stored row order,
+    as OpenCV's reader fills them: a pixel that an end of line, an end of
+    bitmap or a delta steps over takes entry 0; an RLE8 run that ends a
+    row ends it (a following end of line is then ignored)."""
+    buf = np.zeros(h * w, np.int64)
+    pos, y, line_end = 0, 0, w
+    wrapped = False
+
+    def fill(count, val):
+        nonlocal pos, y, line_end
+        while True:
+            end = min(pos + count, line_end)
+            count -= end - pos
+            buf[pos:end] = val
+            pos = end
+            if pos >= line_end:
+                line_end += w
+                pos = line_end - w
+                y += 1
+                if y >= h:
+                    break
+            if count <= 0:
+                break
+
+    i = at
+    while True:
+        if i + 2 > len(data):
+            raise ImageFormatError(f"{name}: truncated RLE data")
+        n, code = data[i], data[i + 1]
+        i += 2
+        if n:                                         # encoded run
+            if pos + n > line_end:
+                raise ImageFormatError(f"{name}: RLE run past its row")
+            if bpp == 8:
+                y0 = y
+                fill(n, code)
+                wrapped = y != y0
+            else:
+                vals = np.resize([code >> 4, code & 15], n)
+                buf[pos:pos + n] = vals
+                pos += n
+            if y >= h:
+                break
+        elif code > 2:                                # absolute run
+            if pos + code > line_end:
+                raise ImageFormatError(f"{name}: RLE run past its row")
+            nbytes = code if bpp == 8 else (code + 1) >> 1
+            nbytes += nbytes & 1
+            raw = np.frombuffer(data[i:i + nbytes], np.uint8)
+            if raw.size < nbytes:
+                raise ImageFormatError(f"{name}: truncated RLE data")
+            i += nbytes
+            vals = raw.astype(np.int64) if bpp == 8 else np.stack(
+                [raw >> 4, raw & 15], -1).reshape(-1).astype(np.int64)
+            buf[pos:pos + code] = vals[:code]
+            pos += code
+            wrapped = False
+        else:                                         # escapes
+            step = line_end - pos
+            down = h - y
+            if code == 2:
+                if i + 2 > len(data):
+                    raise ImageFormatError(f"{name}: truncated RLE data")
+                step, down = data[i], data[i + 1]
+                i += 2
+            if bpp == 8 and not (code or not wrapped or step < w):
+                wrapped = False
+                continue
+            if code != 0 and bpp == 8:
+                step += down * w
+            if y >= h:
+                break
+            fill(step, 0)
+            wrapped = False
+            if y >= h:
+                break
+    return buf.reshape(h, w)
+
+
 def _bmp_pixels(data: bytes, name: str):
-    """(rows (H, W*3) BGR or (H, W) palette indices, palette (256, 3+) BGR
-    or None, W) of an uncompressed 8-bit paletted or 24-bit BMP."""
+    """(pixels, palette) of a BMP as OpenCV's reader takes it, rows top
+    first: (H, W) palette indices with the (256, 3) BGR palette, or
+    (H, W, 3) BGR and None. 1, 4 and 8 bits a pixel with a palette (4 and
+    8 also run-length coded), 16 (5-5-5, or 5-6-5 through bit fields), 24
+    and 32 (alpha and bit fields ignored). The 12-byte OS/2 header has
+    16-bit sizes, no compression and a palette of 3-byte entries."""
     if data[:2] != b"BM" or len(data) < 26:
         raise ImageFormatError(f"{name}: not a BMP file")
     offset, dib = struct.unpack("<II", data[10:18])
     if dib == 12:
         w, h, _, bpp = struct.unpack("<HHHH", data[18:26])
-        comp, ncolors, pal_entry = 0, 0, 3
-    elif dib >= 40:
+        comp, ncolors, entry = 0, 0, 3
+    elif dib >= 36 and len(data) >= 14 + dib:
         w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
         ncolors = struct.unpack("<I", data[46:50])[0]
-        pal_entry = 4
+        entry = 4
     else:
-        raise ImageFormatError(f"{name}: unknown BMP header size {dib}")
-    if comp != 0 or bpp not in (8, 24):
+        raise ImageFormatError(f"{name}: BMP header of {dib} bytes is not "
+                               "supported")
+    ok = (w > 0 and h != 0 and (
+        (bpp in (1, 4, 8, 24, 32) and comp == 0)
+        or (bpp == 32 and comp == 3)
+        or (bpp == 16 and comp in (0, 3) and dib != 12)   # as OpenCV
+        or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1)))
+    if not ok:
         raise ImageFormatError(
             f"{name}: BMP with {bpp} bits a pixel, compression {comp} is not "
-            f"supported (uncompressed 8 or 24 bits only)")
+            f"supported")
     top_down = h < 0
     h = abs(h)
-    if w <= 0 or h == 0:
-        raise ImageFormatError(f"{name}: BMP of size {w}x{h}")
-    stride = (w * bpp // 8 + 3) & ~3
-    if offset + stride * h > len(data):
-        raise ImageFormatError(f"{name}: truncated BMP data")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    kind = bpp
+    if bpp == 16:
+        kind = 15
+        if comp == 3:
+            r, g, b = struct.unpack("<III", data[14 + dib:26 + dib])
+            if (r, g, b) == (0xF800, 0x07E0, 0x001F):
+                kind = 16
+            elif (r, g, b) != (0x7C00, 0x03E0, 0x001F):
+                raise ImageFormatError(f"{name}: BMP bit fields "
+                                       f"{r:#x} {g:#x} {b:#x} not supported")
+    pal = None
+    if bpp <= 8:
+        if ncolors > 256:
+            raise ImageFormatError(f"{name}: BMP palette of {ncolors}")
+        n = ncolors or 1 << bpp
+        pal = np.zeros((256, 3), np.uint8)
+        raw = np.frombuffer(data[14 + dib:14 + dib + entry * n], np.uint8)
+        k = raw.size // entry
+        pal[:k] = raw[:k * entry].reshape(-1, entry)[:, :3]
+    if comp in (1, 2):
+        rows = _rle_indices(data, offset, w, h, bpp, name)
+    else:
+        stride = ((w * bpp + 7) // 8 + 3) & ~3
+        if offset + stride * h > len(data):
+            raise ImageFormatError(f"{name}: truncated BMP data")
+        raw = np.frombuffer(data, np.uint8, stride * h, offset).reshape(
+            h, stride)
+        if bpp <= 8:
+            rows = _unpack_bits(raw, bpp, w)
+        elif bpp == 16:
+            t = raw[:, :2 * w].reshape(h, w, 2).astype(np.int64) @ np.array(
+                [1, 256])
+            if kind == 15:
+                g = (t >> 2) & 0xF8
+                r = (t >> 7) & 0xF8
+            else:
+                g = (t >> 3) & 0xFC
+                r = (t >> 8) & 0xF8
+            rows = np.stack([(t << 3) & 0xF8, g, r], -1).astype(np.uint8)
+        else:
+            rows = raw[:, :w * bpp // 8].reshape(h, w, bpp // 8)[..., :3]
     if not top_down:
         rows = rows[::-1]
-    if bpp == 24:
-        return rows[:, :3 * w].reshape(h, w, 3), None
-    ncolors = ncolors or 256
-    pal_at = 14 + dib
-    pal = np.zeros((256, pal_entry), np.uint8)
-    raw = np.frombuffer(data, np.uint8, min(ncolors, 256) * pal_entry, pal_at)
-    pal[:min(ncolors, 256)] = raw.reshape(-1, pal_entry)
-    return rows[:, :w], pal
+    return rows, pal
 
 
 def decode_bmp_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 grey of an uncompressed 8-bit paletted or 24-bit BMP."""
+    """(H, W) uint8 grey of a BMP: OpenCV's rounding 14-bit weights on each
+    pixel's colour (on the palette for palette images)."""
     px, pal = _bmp_pixels(data, name)
     if pal is None:
         return _bgr_to_gray_cv(px[..., 0], px[..., 1], px[..., 2])
-    if (pal[:, 0] == pal[:, 1]).all() and (pal[:, 0] == pal[:, 2]).all():
-        lut = pal[:, 0]
-    else:
-        lut = _bgr_to_gray_cv(pal[:, 0], pal[:, 1], pal[:, 2])
+    lut = _bgr_to_gray_cv(pal[:, 0], pal[:, 1], pal[:, 2])
     return lut[px]
 
 
@@ -970,18 +1309,39 @@ def encode_bmp(img: np.ndarray) -> bytes:
 
 # --- by file ----------------------------------------------------------------
 
-def decode_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 grey of a JPEG, PNG or BMP file's bytes, told apart by
-    their signature as OpenCV does."""
+def _decode(data: bytes, name: str, rgb: bool) -> tuple[np.ndarray, int]:
+    """(pixels, EXIF orientation) of a JPEG, PNG, BMP or TIFF file's bytes,
+    told apart by their signature as OpenCV does: (H, W) grey, or with
+    ``rgb`` (H, W, 3) RGB, not yet turned."""
     if data[:2] == b"\xff\xd8":
-        return decode_jpeg_gray(data, name)
+        img = decode_jpeg_rgb(data, name) if rgb else decode_jpeg_gray(
+            data, name)
+        return img, jpeg_orientation(data)
     if data[:8] == _PNG_SIG:
-        return decode_png_gray(data, name)
+        if not rgb:
+            return decode_png_gray(data, name), png_orientation(data)
+        px = _png_pixels(data, name)
+        img = (np.repeat(px[..., :1], 3, axis=2) if px.shape[2] <= 2
+               else px[..., :3])
+        return img, png_orientation(data)
     if data[:2] == b"BM":
-        return decode_bmp_gray(data, name)
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        raise ImageFormatError(f"{name}: TIFF is not supported")
+        if not rgb:
+            return decode_bmp_gray(data, name), 0
+        px, pal = _bmp_pixels(data, name)
+        return (px if pal is None else pal[px])[..., ::-1], 0
+    if data[:4] in TIFF_SIGNATURES:
+        img, tag = decode_tiff(data, name)
+        if not rgb:
+            img = _bgr_to_gray_cv(img[..., 2], img[..., 1], img[..., 0])
+        return img, tag
     raise ImageFormatError(f"{name}: unknown image format")
+
+
+def decode_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W) uint8 grey of a JPEG, PNG, BMP or TIFF file's bytes, turned by
+    the orientation the file stores: ``cv2.imdecode(...,
+    cv2.IMREAD_GRAYSCALE)``."""
+    return apply_orientation(*_decode(data, name, rgb=False))
 
 
 def read_gray(path: str | Path) -> np.ndarray:
@@ -989,47 +1349,13 @@ def read_gray(path: str | Path) -> np.ndarray:
     return decode_gray(path.read_bytes(), str(path))
 
 
-def _jpeg_components(data: bytes, name: str) -> int:
-    """The component count of a JPEG's frame header."""
-    i = 2
-    while i + 4 <= len(data):
-        if data[i] != 0xFF:
-            i += 1
-            continue
-        m = data[i + 1]
-        if m == 0xFF or m == 0x01 or 0xD0 <= m <= 0xD8:
-            i += 1 if m == 0xFF else 2
-            continue
-        length = struct.unpack(">H", data[i + 2:i + 4])[0]
-        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            return data[i + 9]
-        i += 2 + length
-    raise ImageFormatError(f"{name}: JPEG without a frame header")
-
-
 def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a file's bytes, as OpenCV's ``IMREAD_COLOR``
-    followed by ``COLOR_BGR2RGB`` gives it: grey JPEGs, PNGs and BMPs
-    repeat their grey in the three channels; colour PNGs and BMPs keep
-    their samples (alpha dropped). A colour JPEG is refused: its chroma
-    upsampling and colour conversion are not ported (``ROADMAP.md`` queue
-    1, item 2)."""
-    if data[:2] == b"\xff\xd8":
-        if _jpeg_components(data, name) != 1:
-            raise ImageFormatError(
-                f"{name}: colour JPEG read as colour is not supported (grey "
-                "JPEGs only; ROADMAP.md queue 1, item 2)")
-        return np.repeat(decode_jpeg_gray(data, name)[..., None], 3, axis=2)
-    if data[:8] == _PNG_SIG:
-        px = _png_pixels(data, name)
-        if px.shape[2] <= 2:
-            return np.repeat(px[..., :1], 3, axis=2)
-        return np.ascontiguousarray(px[..., :3])
-    if data[:2] == b"BM":
-        px, pal = _bmp_pixels(data, name)
-        bgr = px if pal is None else pal[px][..., :3]
-        return np.ascontiguousarray(bgr[..., ::-1])
-    return np.repeat(decode_gray(data, name)[..., None], 3, axis=2)
+    """(H, W, 3) uint8 RGB of a file's bytes, turned by its orientation:
+    ``cv2.imdecode(..., cv2.IMREAD_COLOR)`` followed by ``COLOR_BGR2RGB``.
+    Grey files repeat their grey in the three channels; colour keeps its
+    samples (alpha dropped, 16 bits cut to 8)."""
+    return np.ascontiguousarray(
+        apply_orientation(*_decode(data, name, rgb=True)))
 
 
 def read_rgb(path: str | Path) -> np.ndarray:
@@ -1038,7 +1364,7 @@ def read_rgb(path: str | Path) -> np.ndarray:
 
 
 _ENCODERS = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png,
-             ".bmp": encode_bmp}
+             ".bmp": encode_bmp, ".tif": encode_tiff, ".tiff": encode_tiff}
 
 
 def encode_for(path: str | Path, img: np.ndarray) -> bytes:
@@ -1047,5 +1373,5 @@ def encode_for(path: str | Path, img: np.ndarray) -> bytes:
     if enc is None:
         raise ImageFormatError(
             f"{path}: cannot write {Path(path).suffix or 'no'} files "
-            f"(JPEG, PNG, BMP only)")
+            f"(JPEG, PNG, BMP, TIFF only)")
     return enc(img)

@@ -117,6 +117,8 @@ SLICE = {
                         "train_from_config"],
     "classifier.pipeline": ["build_model", "main"],
     "classifier.sorter": ["main"],
+    "classifier.visualize": ["visualize_embeddings"],
+    "preprocessing.visualize": ["visualize_orientation"],
     "clustering.kmeans": ["kmeans_plus_plus_init", "kmeans"],
     "clustering.pca": ["pca_reduce"],
     "clustering.agglomerative": ["agglomerative_fast"],
@@ -409,7 +411,8 @@ def test_run_all_sorts_into_the_dataset_dir(tmp_path, monkeypatch):
     "clustering.metrics.calinski_harabasz_index",
     "clustering.metrics.evaluate_clustering",
     "train.ssl_train.train_ssl", "train.ssl_train.train_ssl_device",
-    "train.seg_train.train_from_config"])
+    "train.seg_train.train_from_config",
+    "classifier.visualize.visualize_embeddings"])
 def test_ssl_front_defaults_to_the_card_and_raises_without_one(
         entry, tmp_path, monkeypatch):
     """The SSL front's entry points run on the card unless the caller asks
@@ -444,7 +447,9 @@ def test_ssl_front_defaults_to_the_card_and_raises_without_one(
             "train.ssl_train.train_ssl": (None, lambda: iter([]), 1),
             "train.ssl_train.train_ssl_device": (
                 None, np.zeros((2, 8, 8), np.uint8), 1),
-            "train.seg_train.train_from_config": (str(cfg),)}[entry]
+            "train.seg_train.train_from_config": (str(cfg),),
+            "classifier.visualize.visualize_embeddings": (
+                x, labels, tmp_path / "fig" / "e.png")}[entry]
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(*args, device=device)

@@ -241,3 +241,19 @@ def test_run_all_trains_without_a_checkpoint(tmp_path, monkeypatch):
     assert len(list((tmp_path / "dataset" / "sorted_dataset").rglob(
         "*.png"))) == 4
     assert res["catalog_rows"] == 4 and "matching" in res
+
+def test_run_all_writes_the_embedding_figure(tmp_path, monkeypatch):
+    """``run_all(skip_ssl=False, device="cpu")`` draws the embedding
+    scatter where the JAX pipeline does: ``paths.figures_dir`` (default
+    ``results/img``) / ``embeddings_clusters.png``, a picture the codec
+    reads back."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.image_codec import (
+        read_rgb)
+    cfg = _raw_tree_and_config(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    pipeline.run_all(str(tmp_path / "dataset"), classifier_config=str(cfg),
+                     train=False, device="cpu")
+    fig = tmp_path / "results" / "img" / "embeddings_clusters.png"
+    assert fig.is_file()
+    img = read_rgb(fig)
+    assert img.shape == (720, 840, 3) and (img != 255).any()

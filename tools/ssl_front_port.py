@@ -14,8 +14,9 @@ with 8 clusters): ``classifier.pipeline.main(train=False)`` and
 ``agglomerative_fast`` (the config's other method) on the same PCA
 projection. Prints the seconds of each step (the files' read and decode and
 their preprocessing on the host,
-forward, PCA, kmeans, the report, the CSV, the agglomerative alternative,
-the sorter's copy), the device's peak memory and, as its last line, one
+forward, PCA, kmeans, the report, the embedding figure (its t-SNE on the
+card over all the files and the raster written through the codec), the
+CSV, the agglomerative alternative, the sorter's copy), the device's peak memory and, as its last line, one
 JSON object with all of it. On the card unless given ``--device cpu``;
 imports nothing of JAX.
 """
