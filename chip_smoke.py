@@ -71,7 +71,15 @@ and drives the port's paths on the card:
   no weight; two steps card against CPU port; the checkpoint read back),
   UNet++ through ``train_from_config`` on masks the preprocessing runner
   wrote, with a resume from ``last.msgpack``, and
-  ``run_all(skip_ssl=False, train=True)`` from a raw tree to EER.
+  ``run_all(skip_ssl=False, train=True)`` from a raw tree to EER;
+- multi-GPU (``parallel.launch.run_ranks``): one NCCL rank a card runs the
+  gallery's cascade sweep and ``identify_batch`` on the world mesh (equal
+  to the gallery phase's results; kernel D's launches summed over ranks),
+  ``train_ssl(mesh=world)`` for two steps at full width against
+  ``train_ssl`` on one device (and the first step's gradient summed over
+  ranks against one device's), and ``dryrun_multichip``; then two gloo
+  ranks share one card and are held to the same results (NCCL refuses two
+  ranks on one device), unless gloo refuses CUDA tensors.
 
 Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
 pandas or matplotlib). Prints the card's name and
@@ -1948,7 +1956,9 @@ def gallery_phase(dev, build, card, mesh) -> dict:
     return dict(launches=runs["cascade on"]["launches"], seconds=t_phase,
                 sweeps={k: v["seconds"] for k, v in runs.items()},
                 recall=recall, identify_ms=one_ms,
-                identify_batch_ms=batch_ms)
+                identify_batch_ms=batch_ms,
+                cascade_scores=runs["cascade on"]["scores"],
+                identify_batch=batch.cpu())
 
 
 # --- the SSL front: models, segmentation, run_all from a raw tree -------------
@@ -2785,6 +2795,328 @@ def train_phase(dev, build, card) -> dict:
     return dict(ssl=ssl, seg=seg, run_all=raw)
 
 
+# --- multi-GPU: the gallery and data-parallel SSL training over ranks ----------
+
+MULTI_SSL_BATCH = 16          # global batch of 224x224 host views
+MULTI_SSL_LR = 1e-5           # configs/config_classifier.yml ssl.training.lr
+MULTI_GRAD_RTOL = 1e-3        # ||ranks' summed gradient - one device's|| / ||one device's||
+MULTI_TIMEOUT = 300           # seconds a launch may take, its ranks' start included
+MULTI_COLLECTIVE_REPS = 10
+
+
+def _multi_ssl(mesh, dev) -> dict:
+    """Data-parallel SSL training at full width on ``mesh`` (None: one
+    device ``dev``, no mesh) from the weights seed 0 gives, on
+    ``TRAIN_CMP_STEPS`` global batches of ``MULTI_SSL_BATCH`` host views
+    from ``default_rng(3)``: first the gradient of the first step at those
+    weights (``ssl_loss_and_grads``, summed over the ranks), then one
+    epoch of ``train_ssl(mesh=mesh)`` (seed 0, lr ``MULTI_SSL_LR``, one
+    warm-up epoch: lr 0 at step 0) with its working directory and
+    checkpoints in a temporary directory of this process. Returns the
+    gradient, the epoch's loss, the step times, the state after on the
+    host and the checkpoints this process wrote."""
+    import os
+    import numpy as np
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        SSLModel, seed_weights, ssl_variables_from_state)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.collectives import (
+        rank_rows)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.train import (
+        ssl_train)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import threefry
+    g = np.random.default_rng(3)
+    views = [tuple(g.random((MULTI_SSL_BATCH, 224, 224), np.float32)
+                   for _ in range(2)) for _ in range(TRAIN_CMP_STEPS)]
+    model = seed_weights(SSLModel(**SSL_FULL), 0).to(dev)
+    first = threefry.split(threefry.key(0))[1]      # train_ssl's first key
+    xi, xj = (torch.from_numpy(np.ascontiguousarray(rank_rows(x, mesh))).to(
+        dev) for x in views[0])
+    _, grads = ssl_train.ssl_loss_and_grads(model, xi, xj, first, mesh=mesh)
+    grads = [t.cpu() for t in grads]
+    stamps: list = []
+
+    def batches():
+        for v in views:
+            stamps.append(time.perf_counter())
+            yield v
+        stamps.append(time.perf_counter())
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            (state, history), train_s = wall_s(lambda: ssl_train.train_ssl(
+                model, batches, TRAIN_CMP_STEPS, epochs=1, lr=MULTI_SSL_LR,
+                warmup_epochs=1, seed=0, save_dir="ckpt", mesh=mesh,
+                device=dev))
+            written = sorted(os.listdir("ckpt")) if os.path.isdir(
+                "ckpt") else []
+        finally:
+            os.chdir(cwd)
+    host = lambda ts: [t.detach().cpu() for t in ts]
+    return dict(grads=grads, history=history, train_s=train_s,
+                step_s=[b - a for a, b in zip(stamps, stamps[1:])],
+                params=host(model.parameters()),
+                mu=host(state.opt_state.mu), nu=host(state.opt_state.nu),
+                stats=ssl_variables_from_state(model.state_dict())[
+                    "batch_stats"], written=written)
+
+
+def gloo_probe_rank() -> str:
+    """One rank of the probe: a row gather and an all-reduce of CUDA
+    tensors on this rank's card. Returns "" when both ran, else gloo's
+    refusal; any other failure is the rank's own."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.collectives import (
+        all_reduce_sum, gather_rows)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
+        create_mesh)
+    mesh = create_mesh(device="cuda")
+    x = torch.full((2, 3), float(mesh.rank + 1), device=mesh.device)
+    try:
+        got = gather_rows(x, mesh)
+        total = all_reduce_sum(x.clone(), mesh)
+    except RuntimeError as e:
+        if not any(w in str(e).lower() for w in ("cuda", "device")):
+            raise
+        return str(e).strip().splitlines()[0]
+    ranks = torch.arange(1, mesh.size + 1, dtype=x.dtype, device=mesh.device)
+    if not (torch.equal(got, ranks.repeat_interleave(2)[:, None].expand(-1, 3))
+            and torch.equal(total, torch.full_like(x, float(ranks.sum())))):
+        raise AssertionError(f"gloo's collectives on CUDA tensors: {got}, "
+                             f"{total}")
+    return ""
+
+
+def multi_gpu_rank() -> dict:
+    """One rank of ``multi_gpu_phase``: the all-pairs sweep with the cascade
+    and ``identify_batch`` on the world mesh (kernel D's launches counted
+    from 0 just before and read just after), the data-parallel SSL
+    training (``_multi_ssl``), then the time of the two collectives the
+    paths issue, at their sizes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        MinutiaeSet, minutiae_from_numpy)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel import (
+        gallery as G)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.collectives import (
+        all_reduce_sum, gather_rows)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
+        create_mesh)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        users_gallery)
+    build.load_library()
+    mesh = create_mesh(device="cuda")       # the card gloo ranks share too
+    w = mesh.size
+    g40 = minutiae_from_numpy(users_gallery(GALLERY_USERS, GALLERY_SAMPLES,
+                                            n_min=40, seed=0))
+    p = MatchParams(ransac_iter=H_FULL)
+    sweep = lambda gal: G.all_pairs_unique(
+        gal, mesh, p, chunk=GALLERY_CHUNK, cascade=True,
+        screen_iters=SCREEN_ITERS)
+    sweep(MinutiaeSet(*(x[:GALLERY_WARMUP] for x in g40)))
+    gp = G.pad_gallery(g40, IDENT_CHUNK)
+    n_local = gp.valid.shape[0] // w
+    chunk = IDENT_CHUNK if n_local % IDENT_CHUNK == 0 else n_local
+    probes = G.take_templates(g40, np.arange(IDENT_PROBES))
+    for key in build.LAUNCHES:
+        build.LAUNCHES[key] = 0
+    scores, sweep_s = wall_s(lambda: sweep(g40))
+    shard = G.shard_gallery(gp, mesh)
+    batch, ident_s = wall_s(lambda: G.identify_batch(probes, shard, mesh, p,
+                                                     chunk=chunk))
+    launches = dict(build.LAUNCHES)
+    ssl = _multi_ssl(create_mesh(axis_name="data", device="cuda"),
+                     mesh.device)
+    # the collectives at the sizes the paths give them: identify_batch's
+    # (P, N / W) gather, and the SSL step's one gradient all-reduce
+    blocks = torch.zeros(IDENT_PROBES, n_local, device=mesh.device)
+    grads = torch.zeros(sum(t.numel() for t in ssl["params"]),
+                        device=mesh.device)
+    gather_ms = 1e3 * wall_s(lambda: [gather_rows(blocks, mesh) for _ in
+                                      range(MULTI_COLLECTIVE_REPS)])[1] / \
+        MULTI_COLLECTIVE_REPS
+    reduce_ms = 1e3 * wall_s(lambda: [all_reduce_sum(grads, mesh) for _ in
+                                      range(MULTI_COLLECTIVE_REPS)])[1] / \
+        MULTI_COLLECTIVE_REPS
+    return dict(rank=mesh.rank, size=w, backend=dist.get_backend(),
+                device=str(mesh.device), scores=scores, sweep_s=sweep_s,
+                identify=batch.cpu(), identify_s=ident_s, chunk=chunk,
+                launches=launches, gather_ms=gather_ms, reduce_ms=reduce_ms,
+                ssl=ssl)
+
+
+def _multi_check(name, ranks, gal, ref, card) -> dict:
+    """Every rank's results against the one-device ones; fails beyond the
+    bounds. Returns the worst differences."""
+    import numpy as np
+
+    def rel_norm(want, got):
+        num = sum(float(((b.double() - a.double()) ** 2).sum())
+                  for a, b in zip(want, got))
+        den = sum(float((a.double() ** 2).sum()) for a in want)
+        return (num / den) ** 0.5
+
+    def tree_max(a, b):
+        if isinstance(a, dict):
+            return max(tree_max(a[k], b[k]) for k in a)
+        return float(np.abs(a - b).max())
+
+    worst = dict(scores=0.0, identify=0.0, grad=0.0, loss=0.0, stats=0.0,
+                 mu=0.0, nu=0.0, moves=0.0, params=0.0)
+    start = ref["start"]
+    for r in ranks:
+        s = r["ssl"]
+        worst["scores"] = max(worst["scores"], float(np.abs(
+            r["scores"] - gal["cascade_scores"]).max()))
+        worst["identify"] = max(worst["identify"], float(
+            (r["identify"] - gal["identify_batch"]).abs().max()))
+        worst["grad"] = max(worst["grad"], rel_norm(ref["grads"],
+                                                    s["grads"]))
+        worst["loss"] = max(worst["loss"], max(
+            abs(a - b) for a, b in zip(s["history"], ref["history"])))
+        worst["stats"] = max(worst["stats"], tree_max(ref["stats"],
+                                                      s["stats"]))
+        worst["mu"] = max(worst["mu"], rel_norm(ref["mu"], s["mu"]))
+        worst["nu"] = max(worst["nu"], rel_norm(ref["nu"], s["nu"]))
+        worst["moves"] = max(worst["moves"], rel_norm(
+            [a - b for a, b in zip(ref["params"], start)],
+            [a - b for a, b in zip(s["params"], start)]))
+        worst["params"] = max(worst["params"], max(
+            float((a - b).abs().max()) for a, b in zip(ref["params"],
+                                                       s["params"])))
+    par_bound = 2 * MULTI_SSL_LR + 1e-6
+    writers = [r["rank"] for r in ranks if r["ssl"]["written"]]
+    print(f"  {name}: all_pairs_unique scores max |d| {worst['scores']:.3g} "
+          f"and identify_batch max |d| {worst['identify']:.3g} against the "
+          f"gallery phase (bound 0); the first step's gradient summed over "
+          f"ranks {worst['grad']:.3g} (relative norm, bound "
+          f"{MULTI_GRAD_RTOL:g}); train_ssl(mesh) against train_ssl on one "
+          f"device, {TRAIN_CMP_STEPS} steps: loss max |d| {worst['loss']:.3g} (bound "
+          f"{TRAIN_LOSS_ATOL:g}), running statistics {worst['stats']:.3g} "
+          f"({TRAIN_STATS_ATOL:g}); Adam's mu {worst['mu']:.3g}, nu "
+          f"{worst['nu']:.3g} ({TRAIN_MOMENT_RTOL:g}, relative norm); the "
+          f"parameters' moves {worst['moves']:.3g} ({TRAIN_MOVE_RTOL:g}); "
+          f"parameters max |d| {worst['params']:.3g} ({par_bound:g}); "
+          f"checkpoints {ranks[0]['ssl']['written']} written by ranks "
+          f"{writers} ({card})")
+    if worst["scores"] or worst["identify"]:
+        fail(f"multi-GPU {name}: the sharded gallery differs from one device")
+    if writers != [0] or ranks[0]["ssl"]["written"] != ref["written"]:
+        fail(f"multi-GPU {name}: checkpoints written by ranks {writers}: "
+             f"{[r['ssl']['written'] for r in ranks]}, one device "
+             f"{ref['written']}")
+    if not (worst["grad"] <= MULTI_GRAD_RTOL
+            and worst["loss"] <= TRAIN_LOSS_ATOL
+            and worst["stats"] <= TRAIN_STATS_ATOL
+            and worst["mu"] <= TRAIN_MOMENT_RTOL
+            and worst["nu"] <= TRAIN_MOMENT_RTOL
+            and worst["moves"] <= TRAIN_MOVE_RTOL
+            and worst["params"] <= par_bound):
+        fail(f"multi-GPU {name}: data-parallel SSL beyond the bounds")
+    return worst
+
+
+def multi_gpu_phase(dev, build, card, gal) -> dict:
+    """The port's multi-rank paths on W = ``torch.cuda.device_count()``
+    NCCL ranks, one a card (``parallel.launch.run_ranks``): the all-pairs
+    sweep with the cascade and ``identify_batch`` (64 probes, 1,536
+    templates) on the world mesh, equal to ``gallery_phase``'s results;
+    ``train_ssl(mesh=world)`` at full width against ``train_ssl`` on one
+    device from the same weights and views (``_multi_ssl``);
+    ``dryrun_multichip(W)``. Then two ranks on the one card over gloo with
+    CUDA tensors (NCCL refuses two ranks on one device), held to the same
+    results. Only gloo refusing CUDA tensors in the probe's collectives
+    (``gloo_probe_rank``) skips that part; a rank that fails, dies or
+    outlasts its time limit fails the script. Returns kernel D's launches
+    summed over the NCCL ranks."""
+    import torch
+    from multimodal_biometric_fingerprints_palms_tpu_torch import entry
+    from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
+        SSLModel, seed_weights)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.launch import (
+        run_ranks)
+    t_phase = time.perf_counter()
+    w = torch.cuda.device_count()
+    ref, ref_s = wall_s(lambda: _multi_ssl(None, dev))
+    ref["start"] = [p.detach() for p in seed_weights(SSLModel(**SSL_FULL),
+                                                     0).parameters()]
+    print(f"  one device: the first step's gradient and train_ssl over "
+          f"{TRAIN_CMP_STEPS} steps at full width, batch {MULTI_SSL_BATCH}, "
+          f"in {ref_s:.2f} s (steps "
+          f"{', '.join(f'{1e3 * s:.2f}' for s in ref['step_s'])} ms)")
+
+    def launch(n, backend, timeout):
+        ranks, secs = wall_s(lambda: run_ranks(
+            multi_gpu_rank, n, device="cuda", backend=backend,
+            timeout=timeout))
+        d = sum(r["launches"]["match"] for r in ranks)
+        other = {k: sum(r["launches"][k] for r in ranks)
+                 for k in build.LAUNCHES if k != "match"}
+        r0 = ranks[0]
+        print(f"  {n} rank(s) over {r0['backend']} on "
+              f"{', '.join(r['device'] for r in ranks)}: launch "
+              f"{secs:.2f} s; all_pairs_unique (cascade on, RANSAC {H_FULL}) "
+              f"{max(r['sweep_s'] for r in ranks):.3f} s; identify_batch "
+              f"({IDENT_PROBES} probes, chunk {r0['chunk']}) "
+              f"{max(r['identify_s'] for r in ranks):.3f} s; train_ssl "
+              f"{r0['ssl']['train_s']:.2f} s, steps "
+              f"{', '.join(f'{1e3 * s:.2f}' for s in r0['ssl']['step_s'])} "
+              f"ms; collectives: gather of ({IDENT_PROBES}, "
+              f"{1536 // n}) {max(r['gather_ms'] for r in ranks):.3f} ms, "
+              f"all-reduce of the SSL gradient "
+              f"{max(r['reduce_ms'] for r in ranks):.3f} ms; kernel D "
+              f"launches summed over ranks {d}")
+        if d <= 0 or any(other.values()):
+            fail(f"multi-GPU {n} ranks: kernel D launches {d}, others {other}")
+        return ranks, secs, d
+
+    ranks, secs, d = launch(w, None, MULTI_TIMEOUT)
+    worst = _multi_check(f"{w} NCCL rank(s)", ranks, gal, ref, card)
+    line, dry_s = wall_s(lambda: entry.dryrun_multichip(w))
+    print(f"  dryrun_multichip({w}) in {dry_s:.2f} s")
+    if not (line.startswith(f"dryrun_multichip({w}): ssl loss=")
+            and line.endswith(" ok")):
+        fail("dryrun_multichip: its line")
+    out = dict(ranks=w, backend=ranks[0]["backend"], launches=d,
+               launch_s=secs, sweep_s=max(r["sweep_s"] for r in ranks),
+               identify_s=max(r["identify_s"] for r in ranks),
+               ssl_step_ms=[1e3 * s for s in ranks[0]["ssl"]["step_s"]],
+               one_device_ssl_step_ms=[1e3 * s for s in ref["step_s"]],
+               gather_ms=max(r["gather_ms"] for r in ranks),
+               reduce_ms=max(r["reduce_ms"] for r in ranks),
+               worst=worst, dryrun_s=dry_s, dryrun=line)
+    # two ranks on the one card: NCCL refuses a device shared by two ranks;
+    # gloo moves CUDA tensors through the host, if it serves them at all
+    if w == 1:
+        refused = [r for r in run_ranks(gloo_probe_rank, 2, device="cuda",
+                                        backend="gloo", timeout=120) if r]
+        if refused:
+            print("  two ranks on one card over gloo: not run (gloo refused "
+                  f"CUDA tensors: {refused[0]})")
+            out["two_on_one"] = dict(ran=False, error=refused[0])
+        else:
+            two, secs2, d2 = launch(2, "gloo", MULTI_TIMEOUT)
+            out["two_on_one"] = dict(
+                ran=True, launches=d2, launch_s=secs2,
+                sweep_s=max(r["sweep_s"] for r in two),
+                identify_s=max(r["identify_s"] for r in two),
+                ssl_step_ms=[1e3 * s for s in two[0]["ssl"]["step_s"]],
+                gather_ms=max(r["gather_ms"] for r in two),
+                reduce_ms=max(r["reduce_ms"] for r in two),
+                worst=_multi_check("2 gloo ranks on one card", two, gal,
+                                   ref, card))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  multi-GPU phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3293,6 +3625,13 @@ def main() -> None:
         "run_all": {k: trained["run_all"][k] for k in (
             "run_all_s", "seconds", "eer", "gap", "steps")}}}))
 
+    # 15. multi-GPU: the sharded gallery, data-parallel SSL training and the
+    # dry run over one rank a card (NCCL), then two ranks on one card (gloo)
+    print("multi-GPU (parallel.launch.run_ranks: the gallery on the world "
+          "mesh, data-parallel SSL, dryrun_multichip):")
+    multi = multi_gpu_phase(dev, build, card, gal)
+    print(json.dumps({"multi_gpu": {"card": card, **multi}}))
+
     src = f"{PKG}/csrc"
     jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
 
@@ -3352,6 +3691,9 @@ def main() -> None:
         k["formats_launches"] = fmts["launches"][counter]
     # kernel D's launches in the gallery's all-pairs sweep with the cascade
     kernels[3]["gallery_launches"] = gal["launches"]
+    # and summed over the ranks of the multi-GPU phase's sweep and
+    # identify_batch (counts set to 0 in each rank just before, read after)
+    kernels[3]["multi_gpu_launches"] = multi["launches"]
     # kernel C beyond one block's shared memory (the device-memory form)
     kernels[2]["large_frames"] = c_large
     # launches of each kernel in run_all(skip_ssl=False) from a raw tree

@@ -29,6 +29,15 @@ pipeline draws it: ``ssl.visualization.method`` and ``max_points``, into
 numpy raster written through the port's codec, where the JAX package uses
 scikit-learn and matplotlib). As there, a figure that fails is logged as a
 warning and does not stop the pipeline; nothing retries it on the CPU.
+
+On a mesh of W ranks (``parallel/mesh.py``; every rank calls ``main`` with
+the same arguments) training is data-parallel on host views, as in the JAX
+package (``device_augment`` is ignored): every rank renders the global
+batch from the same seed and keeps its rows, so the views equal the
+one-device run's row for row at W times the host work of a rank's share.
+Rank 0 extracts the embeddings (or reads their cache) and broadcasts them;
+every rank then clusters on its device and returns the same result, and
+rank 0 alone writes the report, the figure and the CSV.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ..config import load_classifier_config
 from ..models.convert import load_jax_variables
 from ..models.seeding import seed_weights
 from ..models.ssl_model import SSLModel
+from ..parallel.collectives import is_multi
 from ..utils import threefry
 from ..utils.checkpoint import load_msgpack
 from ..utils.device import resolve_device
@@ -158,14 +168,31 @@ def load_ssl_model(cfg, save_dir: Path, train: bool, device, paths=(),
     return model.to(device).eval(), trained
 
 
+def _figure(cfg, vcfg, embeddings, labels, device) -> None:
+    """The embedding scatter (the JAX package's call; a failed figure is
+    logged and never stops the pipeline)."""
+    try:
+        from .visualize import visualize_embeddings
+        figures_dir = Path(cfg.get("paths.figures_dir", "results/img"))
+        visualize_embeddings(
+            embeddings, labels, figures_dir / "embeddings_clusters.png",
+            method=vcfg.get("method", "tsne") if hasattr(vcfg, "get") else "tsne",
+            max_points=vcfg.get("max_points", 3000) if hasattr(vcfg, "get") else 3000,
+            device=device)
+    except Exception as e:  # the figure must never break the pipeline
+        logger.warning("embedding visualization failed: %s", e)
+
+
 def main(config_path: str | None = None, dataset_dirs=None,
          train: bool = True, mesh=None, device=None) -> dict:
-    """Run the SSL pipeline on ``device`` (default: the card). Returns the
+    """Run the SSL pipeline on ``device`` (default: the card), or on
+    ``mesh`` (``parallel.create_mesh``; see the module note). Returns the
     JAX function's keys, under ``seconds`` each step's wall time, and
     under ``training`` (when it trained) the branch and the loss history.
-    ``mesh``: None, or a one-device mesh (``parallel.create_mesh``); as in
-    the JAX package, a mesh sends training to host views."""
-    device = resolve_device(device, "the SSL pipeline")
+    As in the JAX package, a mesh sends training to host views."""
+    device = (mesh.device if mesh is not None
+              else resolve_device(device, "the SSL pipeline"))
+    lead = mesh is None or mesh.rank == 0
     cfg = load_classifier_config(config_path)
     save_dir = Path(cfg.paths.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
@@ -197,9 +224,14 @@ def main(config_path: str | None = None, dataset_dirs=None,
 
     console_step("Extracting embeddings")
     embed_s: dict = {}
-    embeddings, kept_paths = extract_embeddings(
-        model, paths, batch_size=batch_size, image_size=image_size,
-        cache_file=save_dir / "embeddings.npz", seconds=embed_s)
+    got = [None]
+    if lead:
+        got = [extract_embeddings(
+            model, paths, batch_size=batch_size, image_size=image_size,
+            cache_file=save_dir / "embeddings.npz", seconds=embed_s)]
+    if is_multi(mesh):
+        torch.distributed.broadcast_object_list(got, 0, group=mesh.group)
+    embeddings, kept_paths = got[0]
     print(f"embeddings: {embeddings.shape}")
     lap("embeddings")
     seconds.update({f"embeddings {k}": v for k, v in embed_s.items()})
@@ -226,23 +258,14 @@ def main(config_path: str | None = None, dataset_dirs=None,
     report = evaluate_clustering(x, labels, n_clusters, device=device)
     report["inertia"] = inertia
     report["method"] = method
-    with open(save_dir / "clustering_report_detailed.json", "w") as f:
-        json.dump(report, f, indent=2)
+    if lead:
+        with open(save_dir / "clustering_report_detailed.json", "w") as f:
+            json.dump(report, f, indent=2)
     lap("report")
 
-    # the embedding scatter (the JAX package's call; a failed figure is
-    # logged and never stops the pipeline)
-    vcfg = cfg.get("ssl.visualization", {})
-    try:
-        from .visualize import visualize_embeddings
-        figures_dir = Path(cfg.get("paths.figures_dir", "results/img"))
-        visualize_embeddings(
-            embeddings, labels, figures_dir / "embeddings_clusters.png",
-            method=vcfg.get("method", "tsne") if hasattr(vcfg, "get") else "tsne",
-            max_points=vcfg.get("max_points", 3000) if hasattr(vcfg, "get") else 3000,
-            device=device)
-    except Exception as e:  # the figure must never break the pipeline
-        logger.warning("embedding visualization failed: %s", e)
+    if lead:
+        _figure(cfg, cfg.get("ssl.visualization", {}), embeddings, labels,
+                device)
     lap("figure")
 
     console_step("Per-ID aggregation")
@@ -261,13 +284,15 @@ def main(config_path: str | None = None, dataset_dirs=None,
         id_labels.append(int(labels[int(np.argmin(dists))]))
 
     csv_path = save_dir / "id_clusters.csv"
-    with open(csv_path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["filename", "path", "global_id", "cluster_label"])
-        for gid, cl in zip(id_list, id_labels):
-            for full in id_to_filenames[gid]:
-                writer.writerow([Path(full).name, full, gid, cl])
-    console_step(f"id_clusters.csv written: {len(id_list)} ids")
+    if lead:
+        with open(csv_path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["filename", "path", "global_id",
+                             "cluster_label"])
+            for gid, cl in zip(id_list, id_labels):
+                for full in id_to_filenames[gid]:
+                    writer.writerow([Path(full).name, full, gid, cl])
+        console_step(f"id_clusters.csv written: {len(id_list)} ids")
     lap("csv")
 
     return {

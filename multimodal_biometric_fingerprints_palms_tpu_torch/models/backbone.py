@@ -21,12 +21,19 @@ digit:
   moves the running statistics as flax does: ``ra = 0.99 ra + 0.01 s``
   with the *biased* batch variance, ``mean(x^2) - mean(x)^2`` clamped at 0
   (``nn.BatchNorm2d`` would take the unbiased one, scaled by n / (n - 1)).
+- ``batch_group``, a forward argument of every module here: None, or the
+  ``torch.distributed`` process group whose ranks each hold their own rows
+  of one batch (a data-parallel training step, ``train/ssl_train.py``).
+  With a group, train-mode BatchNorm normalises with the whole batch's
+  statistics and moves its running statistics by them, as one device
+  does on the whole batch; without one nothing of this runs.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
 
 # (block, expand, channels, layers, stride, use_se)
@@ -75,13 +82,35 @@ class SameConv2d(nn.Conv2d):
         return F.conv2d(x, self.weight, self.bias, s, 0, 1, self.groups)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """``x`` summed over the ranks of ``group``. Its backward sums the
+    incoming gradients over the ranks too: each rank's holds what flows
+    through its own rows, and every row depends on the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class _FlaxStats:
     """Train-mode forward of a BatchNorm that updates its running
-    statistics as flax's ``nn.BatchNorm`` does (see the module note)."""
+    statistics as flax's ``nn.BatchNorm`` does (see the module note); with
+    a ``batch_group``, over the whole batch (``_global_forward``)."""
 
-    def forward(self, x):
+    def forward(self, x, batch_group=None):
         if not self.training:
             return super().forward(x)
+        if batch_group is not None:
+            return self._global_forward(x, batch_group)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
@@ -90,6 +119,34 @@ class _FlaxStats:
             var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
             self.running_mean.copy_(0.99 * self.running_mean + 0.01 * mean)
             self.running_var.copy_(0.99 * self.running_var + 0.01 * var)
+        return y
+
+    def _global_forward(self, x, group):
+        """This rank's rows normalised with the mean and biased variance of
+        every rank's rows, as one device normalises the whole batch: the
+        mean from the summed sums, the variance from the summed squared
+        deviations from it (two all-reduces, both under autograd). The
+        running statistics move by the global mean and ``mean(x^2) -
+        mean^2``, as on one device."""
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, c] + [1] * (x.ndim - 2)
+        count = torch.tensor(float(x.numel() // c
+                                   * dist.get_world_size(group)),
+                             dtype=x.dtype, device=x.device)
+        sums = _SumOverRanks.apply(
+            torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims).detach()]),
+            group) / count
+        mean = sums[:c]
+        d = x - mean.reshape(shape)
+        var = _SumOverRanks.apply((d * d).sum(dim=dims), group) / count
+        y = d * torch.rsqrt(var + self.eps).reshape(shape)
+        y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
+            m = mean.detach()
+            rvar = torch.clamp(sums[c:].detach() - m * m, min=0.0)
+            self.running_mean.copy_(0.99 * self.running_mean + 0.01 * m)
+            self.running_var.copy_(0.99 * self.running_var + 0.01 * rvar)
         return y
 
 
@@ -133,11 +190,11 @@ class FusedMBConv(nn.Module):
             self.Conv_0 = SameConv2d(inp, features, 3, stride, bias=False)
             self.BatchNorm_0 = batch_norm(features)
 
-    def forward(self, x):
-        y = self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, batch_group=None):
+        y = self.BatchNorm_0(self.Conv_0(x), batch_group)
         y = F.silu(y)
         if self.expand != 1:
-            y = self.BatchNorm_1(self.Conv_1(y))
+            y = self.BatchNorm_1(self.Conv_1(y), batch_group)
         return y + x if self.residual else y
 
 
@@ -156,12 +213,12 @@ class MBConv(nn.Module):
         self.Conv_2 = SameConv2d(hidden, features, 1, bias=False)
         self.BatchNorm_2 = batch_norm(features)
 
-    def forward(self, x):
-        y = F.silu(self.BatchNorm_0(self.Conv_0(x)))
-        y = F.silu(self.BatchNorm_1(self.Conv_1(y)))
+    def forward(self, x, batch_group=None):
+        y = F.silu(self.BatchNorm_0(self.Conv_0(x), batch_group))
+        y = F.silu(self.BatchNorm_1(self.Conv_1(y), batch_group))
         if self.SqueezeExcite_0 is not None:
             y = self.SqueezeExcite_0(y)
-        y = self.BatchNorm_2(self.Conv_2(y))
+        y = self.BatchNorm_2(self.Conv_2(y), batch_group)
         return y + x if self.residual else y
 
 
@@ -195,16 +252,16 @@ class FingerprintBackbone(nn.Module):
         self.BatchNorm_1 = batch_norm(head_features)
         self.Dense_0 = nn.Linear(head_features, embedding_dim)
 
-    def forward(self, x):
+    def forward(self, x, batch_group=None):
         # x: (B, H, W) or (B, H, W, 1) grayscale in [0, 1], or (B, 1, H, W)
         if x.ndim == 4 and x.shape[-1] == 1 and x.shape[1] != 1:
             x = x[..., 0]
         if x.ndim == 3:
             x = x[:, None]
-        y = F.silu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.silu(self.BatchNorm_0(self.Conv_0(x), batch_group))
         for name in self.blocks:
-            y = getattr(self, name)(y)
-        y = F.silu(self.BatchNorm_1(self.Conv_1(y)))
+            y = getattr(self, name)(y, batch_group)
+        y = F.silu(self.BatchNorm_1(self.Conv_1(y), batch_group))
         emb = self.Dense_0(y.mean(dim=(2, 3)))
         if self.l2_normalize:
             emb = emb / torch.clamp(torch.linalg.vector_norm(

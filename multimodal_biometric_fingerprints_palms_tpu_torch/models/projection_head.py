@@ -14,15 +14,17 @@ is flax's ``make_rng("dropout")`` in the module ``<name>/Dropout_<i>``,
 step's dropout key ``rng``; the mask is ``uniform < 0.9``, drawn on
 ``x``'s device, and kept values
 are divided by 0.9 (a tensor divisor: the card turns a division by a
-Python scalar into a product with its reciprocal).
+Python scalar into a product with its reciprocal). With a ``batch_group``
+(``models/backbone.py``'s note) the mask is drawn for the whole batch, as
+the JAX step draws it over the global array, and a rank keeps its rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-
 from ..utils import threefry
 from .backbone import FlaxBatchNorm1d
 
@@ -53,16 +55,24 @@ def batch_norm1d(ch: int) -> nn.BatchNorm1d:
     return FlaxBatchNorm1d(ch, eps=1e-5, momentum=0.01)
 
 
-def flax_dropout(x: torch.Tensor, rng, path: tuple, rate: float
-                 ) -> torch.Tensor:
+def flax_dropout(x: torch.Tensor, rng, path: tuple, rate: float,
+                 batch_group=None) -> torch.Tensor:
     """flax's ``nn.Dropout(rate)`` at module ``path`` under the dropout key
-    ``rng`` (a ``utils.threefry`` key), its first call in the apply."""
+    ``rng`` (a ``utils.threefry`` key), its first call in the apply; with
+    ``batch_group``, this rank's rows of the whole batch's mask."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
     key = threefry.fold_in_static(rng, tuple(path) + (1,))
-    mask = threefry.bernoulli(torch.tensor(key, device=x.device), keep,
-                              tuple(x.shape))
+    if batch_group is None:
+        mask = threefry.bernoulli(torch.tensor(key, device=x.device), keep,
+                                  tuple(x.shape))
+    else:
+        n, r = x.shape[0], dist.get_rank(batch_group)
+        mask = threefry.bernoulli(
+            torch.tensor(key, device=x.device), keep,
+            (n * dist.get_world_size(batch_group),) + tuple(x.shape[1:]))
+        mask = mask[r * n:(r + 1) * n]
     kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, kept, torch.zeros_like(x))
 
@@ -88,18 +98,19 @@ class ProjectionHead(nn.Module):
             self.add_module(f"BatchNorm_{i}", batch_norm1d(hidden_dim))
         self.Dense_0 = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, x, dropout_rng=None):
-        """``dropout_rng``: the step's dropout key, needed in train mode."""
+    def forward(self, x, dropout_rng=None, batch_group=None):
+        """``dropout_rng``: the step's dropout key, needed in train mode;
+        ``batch_group``: see ``models/backbone.py``'s note."""
         if self.training and self.num_layers > 1 and dropout_rng is None:
             raise ValueError("the projection head's dropout needs a key in "
                              "train mode (flax's rngs={'dropout': ...})")
         y = x
         for i in range(self.num_layers - 1):
             y = getattr(self, f"WeightNormDense_{i}")(y)
-            y = F.relu(getattr(self, f"BatchNorm_{i}")(y))
+            y = F.relu(getattr(self, f"BatchNorm_{i}")(y, batch_group))
             if self.training:
                 y = flax_dropout(y, dropout_rng, (self.name, f"Dropout_{i}"),
-                                 self.dropout)
+                                 self.dropout, batch_group)
         y = self.Dense_0(y)
         if self.residual:
             y = y + x

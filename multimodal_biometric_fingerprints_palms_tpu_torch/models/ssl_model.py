@@ -7,7 +7,8 @@ then uses its running statistics and dropout is off (the JAX package's
 ``train=False``). In train mode (``train=True`` there) BatchNorm moves its
 running statistics as flax does and the projection head's dropout draws
 flax's masks from ``dropout_rng``, the key the JAX step hands
-``rngs={"dropout": ...}``.
+``rngs={"dropout": ...}``. ``batch_group`` makes the forward one rank's
+part of a data-parallel step (``models/backbone.py``'s note).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ class Predictor(nn.Module):
         self.BatchNorm_0 = batch_norm1d(hidden_dim)
         self.Dense_1 = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, x):
-        return self.Dense_1(F.relu(self.BatchNorm_0(self.Dense_0(x))))
+    def forward(self, x, batch_group=None):
+        return self.Dense_1(F.relu(self.BatchNorm_0(self.Dense_0(x),
+                                                    batch_group)))
 
 
 class SSLModel(nn.Module):
@@ -53,12 +55,14 @@ class SSLModel(nn.Module):
                                     proj_output_dim)
                           if use_predictor else None)
 
-    def forward(self, x, return_embedding: bool = False, dropout_rng=None):
+    def forward(self, x, return_embedding: bool = False, dropout_rng=None,
+                batch_group=None):
         with full_float32():
-            embedding = self.backbone(x)
-            projection = self.projection_head(embedding, dropout_rng)
+            embedding = self.backbone(x, batch_group)
+            projection = self.projection_head(embedding, dropout_rng,
+                                              batch_group)
             if self.predictor is not None:
-                projection = self.predictor(projection)
+                projection = self.predictor(projection, batch_group)
         if return_embedding:
             return projection, embedding
         return projection

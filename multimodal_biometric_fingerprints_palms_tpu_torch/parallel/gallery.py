@@ -1,16 +1,31 @@
 """1:N identification and all-pairs scoring of a gallery (port of
 ``parallel/gallery.py``).
 
-The gallery is an (N, K) MinutiaeSet. Every function that takes a mesh
-first places the gallery (and the probes) on the mesh's device (one
-device, see ``parallel/mesh.py``), as the JAX package's ``shard_map``
-places them through its ``in_specs``: the mesh, not where the caller built
-the tensors, decides where the work runs. Every function walks pairs of template indices in
-chunks through the matcher's batch entry points: the full pass
-``cuda_match.match_pairs_batch`` and the cascade screen
-``cuda_match.screen_promote_batch``, so kernel D scores them on the card
-and its plain twin on the CPU. Results are per pair: how pairs are split
-into calls changes none of them, and the last chunk is not padded.
+The gallery is an (N, K) MinutiaeSet. A mesh (``parallel/mesh.py``) is one
+device, or W ranks of a process group with a device each; every rank calls
+each function with the same arguments, as one JAX controller calls it, and
+gets the whole result. The work is split as the JAX package's ``shard_map``
+splits it:
+
+- ``shard_gallery``: rank r holds rows [r N/W, (r+1) N/W) on its device
+  (a ``GalleryShard``); every function takes the whole gallery or such a
+  shard, as the JAX functions take a global array however it is placed;
+- ``all_pairs_scores``: each rank scores its rows against every row, the
+  column side the ``all_gather`` of every rank's rows;
+- ``shard_pairs_scores``, ``shard_pairs_screen``: the pair list padded to
+  W x per_dev by repeating its last pair and split evenly, the gallery
+  replicated; ``shard_blocks_screen`` splits its block pairs the same way;
+- ``identify``, ``identify_batch``: each rank scores its N / W rows.
+
+Each rank's results are gathered in rank order (``all_gather``) and the
+padding dropped. The mesh, not where the caller built the tensors, decides
+where the work runs: inputs are moved to the rank's device first. Every
+function walks pairs of template indices in chunks through the matcher's
+batch entry points: the full pass ``cuda_match.match_pairs_batch`` and the
+cascade screen ``cuda_match.screen_promote_batch``, so kernel D scores
+them on the card and its plain twin on the CPU. Results are per pair: how
+pairs are split into calls or over ranks changes none of them, and on one
+device nothing is padded.
 
 Two TPU workarounds of the JAX package are not carried over. A template
 gather is ``index_select``, not a one-hot matmul. The blocked screen scores
@@ -20,10 +35,6 @@ nothing, and at 512 pairs a call the matcher is bound by its launches.
 ``use_pallas`` is dropped (one route on every device, as in
 ``matching/runner.py``); the JAX package's CPU route screens with the full
 matcher, the port everywhere with the accelerator rule.
-
-``n_local = n // n_dev`` and the divisibility checks are kept as the JAX
-package has them, so a multi-GPU mesh changes the device count and nothing
-else.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ import torch
 from ..features.minutiae import MinutiaeSet
 from ..matching.cuda_match import match_pairs_batch, screen_promote_batch
 from ..matching.ransac import MatchParams
-from .mesh import Mesh, gallery_sharding
+from .collectives import gather_rows
+from .mesh import Mesh, gallery_sharding, replicated
 
 # Pairs a matcher call in ``identify_batch``: the JAX package matches all
 # P x chunk pairs of a column chunk at once (65,536 at its defaults), but
@@ -43,16 +55,56 @@ from .mesh import Mesh, gallery_sharding
 _PAIR_BATCH = 4096
 
 
+class GalleryShard(MinutiaeSet):
+    """A rank's rows of a gallery sharded over a mesh (``shard_gallery``);
+    on a mesh of one device, the whole gallery."""
+    __slots__ = ()
+
+
 def _device(ms: MinutiaeSet) -> torch.device:
     return ms.valid.device
 
 
+def _on(ms: MinutiaeSet, dev: torch.device) -> MinutiaeSet:
+    return MinutiaeSet(*(x.to(dev) for x in ms))
+
+
+def _whole(gallery: MinutiaeSet, mesh: Mesh) -> MinutiaeSet:
+    """The whole ``gallery`` (a shard is gathered) on this rank's device."""
+    if isinstance(gallery, GalleryShard):
+        return MinutiaeSet(*(gather_rows(x, mesh)
+                             for x in _on(gallery, mesh.device)))
+    return _on(gallery, replicated(mesh).device)
+
+
+def _share(items: np.ndarray, mesh: Mesh, multiple: int):
+    """This rank's share of ``items`` (rows): on W > 1 ranks the rows are
+    padded by repeating the last to W x per_dev, per_dev a multiple of
+    ``multiple``, and split evenly; on one device all of them, unpadded."""
+    if mesh.size == 1:
+        return items
+    per_dev = -(-len(items) // (mesh.size * multiple)) * multiple
+    pad = mesh.size * per_dev - len(items)
+    if pad:
+        items = np.concatenate([items, np.repeat(items[-1:], pad, axis=0)])
+    return items[mesh.rank * per_dev:(mesh.rank + 1) * per_dev]
+
+
 def shard_gallery(gallery: MinutiaeSet, mesh: Mesh,
-                  axis_name: str = "gallery") -> MinutiaeSet:
-    """The (N, K) MinutiaeSet on the mesh's device. N must be divisible by
-    the mesh size (pad with invalid templates if needed)."""
+                  axis_name: str = "gallery") -> GalleryShard:
+    """This rank's rows [r N/W, (r+1) N/W) of the (N, K) MinutiaeSet, on
+    its device (on one device: all of them). N must be divisible by the
+    mesh size (pad with invalid templates if needed)."""
+    if isinstance(gallery, GalleryShard):
+        return GalleryShard(*_on(gallery, mesh.device))
+    n = gallery.valid.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"gallery size {n} not divisible by mesh "
+                         f"{mesh.size}")
+    n_local, r = n // mesh.size, mesh.rank
     dev = gallery_sharding(mesh, axis_name).device
-    return MinutiaeSet(*(x.to(dev) for x in gallery))
+    return GalleryShard(*(x[r * n_local:(r + 1) * n_local].to(dev)
+                          for x in gallery))
 
 
 def pad_gallery(gallery: MinutiaeSet, multiple: int) -> MinutiaeSet:
@@ -98,35 +150,48 @@ def all_pairs_scores(gallery: MinutiaeSet, mesh: Mesh,
                      axis_name: str = "gallery",
                      col_chunk: int = 64) -> torch.Tensor:
     """(N, N) final-score matrix of every template against every other, on
-    the mesh's device, one row's ``col_chunk`` columns a matcher call.
+    every rank's device: each rank scores its rows against the
+    ``all_gather`` of every rank's rows, one row's ``col_chunk`` columns a
+    matcher call.
 
     DEMO/REFERENCE PATH, as in the JAX package: production all-pairs
     scoring is ``shard_pairs_scores`` / ``all_pairs_unique``. Diagonal
     (self-match) included; callers mask it."""
-    n = gallery.valid.shape[0]
-    n_dev = mesh.size
-    if n % n_dev:
-        raise ValueError(f"gallery size {n} not divisible by mesh {n_dev}")
+    local = shard_gallery(gallery, mesh, axis_name)
+    n = local.valid.shape[0] * mesh.size
     if n % col_chunk and n >= col_chunk:
         raise ValueError(
             f"gallery size {n} not divisible by col_chunk {col_chunk}")
-    gallery = shard_gallery(gallery, mesh, axis_name)
-    rows = torch.arange(n, device=_device(gallery))
-    s, _ = _match_indexed(gallery, rows.repeat_interleave(n), gallery,
-                          rows.repeat(n), params, min(col_chunk, n))
-    return s.reshape(n, n)
+    full = _whole(local, mesh)
+    dev = _device(local)
+    ia = torch.arange(local.valid.shape[0], device=dev).repeat_interleave(n)
+    ib = torch.arange(n, device=dev).repeat(local.valid.shape[0])
+    s, _ = _match_indexed(local, ia, full, ib, params, min(col_chunk, n))
+    return gather_rows(s.reshape(-1, n), mesh)
+
+
+def _pairs_local(gallery, pairs, mesh, chunk):
+    """(the whole gallery on this rank's device, this rank's pairs as two
+    index tensors, the pair count)."""
+    gallery = _whole(gallery, mesh)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    ia, ib = _pair_columns(gallery, _share(pairs, mesh, chunk))
+    return gallery, ia, ib, len(pairs)
 
 
 def shard_pairs_scores(gallery: MinutiaeSet, pairs, mesh: Mesh,
                        params: MatchParams = MatchParams(),
                        axis_name: str = "gallery",
                        chunk: int = 2048):
-    """Score an explicit (P, 2) template-index pair list, ``chunk`` pairs a
-    matcher call. Returns (scores (P,), n_inliers (P,)) as numpy arrays."""
-    gallery = shard_gallery(gallery, mesh, axis_name)
-    ia, ib = _pair_columns(gallery, pairs)
+    """Score an explicit (P, 2) template-index pair list, split over the
+    mesh's ranks, ``chunk`` pairs a matcher call. Returns (scores (P,),
+    n_inliers (P,)) as numpy arrays."""
+    gallery, ia, ib, total = _pairs_local(gallery, pairs, mesh, chunk)
+    if total == 0:
+        return np.zeros(0, np.float32), np.zeros(0, np.int32)
     s, n = _match_indexed(gallery, ia, gallery, ib, params, chunk)
-    return s.cpu().numpy(), n.cpu().numpy()
+    return (gather_rows(s, mesh)[:total].cpu().numpy(),
+            gather_rows(n, mesh)[:total].cpu().numpy())
 
 
 def shard_pairs_screen(gallery: MinutiaeSet, pairs, mesh: Mesh,
@@ -135,16 +200,18 @@ def shard_pairs_screen(gallery: MinutiaeSet, pairs, mesh: Mesh,
                        chunk: int = 2048,
                        anchors: bool = True) -> np.ndarray:
     """Cascade screen over an explicit (P, 2) pair list under ``params``
-    (the caller passes the screen's): (P,) bool promote bits of
-    ``screen_promote_batch``, ``chunk`` pairs a call."""
-    gallery = shard_gallery(gallery, mesh, axis_name)
-    ia, ib = _pair_columns(gallery, pairs)
-    out = [screen_promote_batch(take_templates(gallery, ia[s:s + chunk]),
-                                take_templates(gallery, ib[s:s + chunk]),
-                                params, anchors)
-           for s in range(0, ia.shape[0], chunk)]
-    return (torch.cat(out).cpu().numpy() if out
-            else np.zeros(0, dtype=bool))
+    (the caller passes the screen's), split over the mesh's ranks: (P,)
+    bool promote bits of ``screen_promote_batch``, ``chunk`` pairs a
+    call."""
+    gallery, ia, ib, total = _pairs_local(gallery, pairs, mesh, chunk)
+    if total == 0:
+        return np.zeros(0, dtype=bool)
+    out = torch.cat([
+        screen_promote_batch(take_templates(gallery, ia[s:s + chunk]),
+                             take_templates(gallery, ib[s:s + chunk]),
+                             params, anchors)
+        for s in range(0, ia.shape[0], chunk)])
+    return gather_rows(out, mesh)[:total].cpu().numpy()
 
 
 def unique_pairs(n: int) -> np.ndarray:
@@ -160,13 +227,14 @@ def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
                         anchors: bool = True):
     """Cascade screen over ALL unique pairs in (block x block) template
     tiles of the gallery padded to a multiple of ``block``: each tile's
-    full cross product is one ``screen_promote_batch`` call.
+    full cross product is one ``screen_promote_batch`` call, the block
+    pairs split over the mesh's ranks.
 
     Returns (block_pairs (NBP, 2), mask (NBP, block*block)) as numpy:
     block pairs (bi <= bj) in ``np.triu_indices`` order, and mask[r, k]
     promotes global pair (bi*block + k//block, bj*block + k%block): the A
     side repeat-major, the B side tile-minor."""
-    gpad = pad_gallery(shard_gallery(gallery, mesh, axis_name), block)
+    gpad = pad_gallery(_whole(gallery, mesh), block)
     nb = gpad.valid.shape[0] // block
     bi, bj = np.triu_indices(nb, k=0)
     bp = np.stack([bi, bj], axis=1).astype(np.int32)
@@ -176,8 +244,8 @@ def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
         screen_promote_batch(take_templates(gpad, int(r) * block + il),
                              take_templates(gpad, int(c) * block + jl),
                              params, anchors)
-        for r, c in bp])
-    return bp, mask.cpu().numpy()
+        for r, c in _share(bp, mesh, 1)])
+    return bp, gather_rows(mask, mesh)[:len(bp)].cpu().numpy()
 
 
 def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
@@ -192,9 +260,11 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
     (min_inliers relaxed by 2, at least 3; its hypotheses a prefix of the
     full pass's), then the full ``params.ransac_iter`` pass, ``chunk`` pairs
     a call, on the promoted pairs only. Pairs the screen drops score 0.
+    Every rank runs this orchestration on the same gathered results, so
+    every rank makes the same calls.
 
     Returns (P,) float64 final scores aligned with ``unique_pairs(N)``."""
-    gallery = shard_gallery(gallery, mesh, axis_name)
+    gallery = _whole(gallery, mesh)
     n = gallery.valid.shape[0]
     pairs = unique_pairs(n)
     if not (cascade and params.ransac_iter > screen_iters):
@@ -229,7 +299,7 @@ def identify(probe: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
              axis_name: str = "gallery",
              chunk: int = 1024) -> torch.Tensor:
     """1:N identification: (N,) scores of one (K,) probe against the
-    gallery, on the mesh's device, ``chunk`` gallery templates a call:
+    gallery, on every rank's device, ``chunk`` gallery templates a call:
     ``identify_batch`` of one probe."""
     return identify_batch(MinutiaeSet(*(x[None] for x in probe)), gallery,
                           mesh, params, axis_name, chunk)[0]
@@ -240,18 +310,18 @@ def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
                    axis_name: str = "gallery",
                    chunk: int = 1024) -> torch.Tensor:
     """Batched 1:N identification: (P, K) probes against the (N, K)
-    gallery -> (P, N) scores on the mesh's device. The gallery is walked
-    in column chunks of ``chunk`` templates; a chunk's P x chunk pairs,
-    probe-major as in the JAX package, go to the matcher as many probes'
-    rows at a time as fit ``_PAIR_BATCH`` pairs (at least one)."""
-    n = gallery.valid.shape[0]
-    n_local = n // mesh.size
+    gallery -> (P, N) scores on every rank's device. Each rank walks its
+    N / W rows in column chunks of ``chunk`` templates; a chunk's P x chunk
+    pairs, probe-major as in the JAX package, go to the matcher as many
+    probes' rows at a time as fit ``_PAIR_BATCH`` pairs (at least one).
+    The ranks' (P, N / W) blocks are gathered in rank order."""
+    gallery = shard_gallery(gallery, mesh, axis_name)
+    n_local = gallery.valid.shape[0]
     chunk = min(chunk, n_local)
     if n_local % chunk:
         raise ValueError(f"gallery rows per device {n_local} not divisible "
                          f"by chunk {chunk}")
-    gallery = shard_gallery(gallery, mesh, axis_name)
-    probes = shard_gallery(probes, mesh, axis_name)
+    probes = _whole(probes, mesh)
     dev = _device(gallery)
     p_num = probes.valid.shape[0]
     ia = torch.arange(p_num, device=dev).repeat_interleave(chunk)
@@ -260,4 +330,8 @@ def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
     cols = [_match_indexed(probes, ia, gallery, jb + c0, params,
                            step)[0].reshape(p_num, chunk)
             for c0 in range(0, n_local, chunk)]
-    return torch.cat(cols, dim=1)
+    local = torch.cat(cols, dim=1)
+    if mesh.size == 1:
+        return local
+    blocks = gather_rows(local, mesh).reshape(mesh.size, p_num, n_local)
+    return blocks.permute(1, 0, 2).reshape(p_num, mesh.size * n_local)

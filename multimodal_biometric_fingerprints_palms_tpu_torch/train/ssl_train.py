@@ -26,8 +26,23 @@ Initial weights: flax's ``init`` draws cannot be reproduced without flax,
 so ``init_ssl_state`` seeds the weights through ``models.seed_weights``
 (flax's initialisers from a ``torch.Generator`` seeded with the key's
 seed): the same seed gives the same weights on every machine, but not the
-JAX package's. ``mesh`` (data-parallel training) takes a one-device mesh
-only: more devices are ``ROADMAP.md`` queue 1 item 5.
+JAX package's.
+
+Data-parallel training: ``train_ssl(..., mesh=...)`` on a mesh of W ranks
+(``parallel/mesh.py``) is the JAX step over a ``data`` mesh axis, the
+global batch sharded and everything else replicated. Every rank calls it
+with the same arguments and the same global batches; rank r takes rows
+[r B/W, (r+1) B/W) of both views (B must be divisible by W). The weights
+start as rank 0's. In the step (``step(..., mesh=mesh)``, which hands the
+models the mesh's process group as their ``batch_group``) BatchNorm
+normalises with the global batch's statistics and moves its
+running statistics by them, dropout keeps the rank's rows of the global
+batch's masks, and NT-Xent is taken over the projections of the global
+batch, gathered with autograd; the ranks' gradients are summed, once (see
+``parallel/collectives.py``), so the clip and AdamW run the same on every
+rank and the parameters, moments and statistics stay equal. Losses are
+equal on every rank; only rank 0 writes checkpoints and logs. On one
+device nothing of this runs.
 """
 
 from __future__ import annotations
@@ -43,6 +58,8 @@ from ..models.convert import ssl_variables_from_state
 from ..models.losses import nt_xent_loss
 from ..models.seeding import seed_weights
 from ..models.ssl_model import SSLModel
+from ..parallel.collectives import (all_reduce_sum, broadcast_state,
+                                    gather_rows_grad, is_multi, rank_rows)
 from ..utils import threefry
 from ..utils.checkpoint import load_msgpack, save_msgpack
 from ..utils.device import full_float32, resolve_device
@@ -62,28 +79,46 @@ class SSLTrainState(NamedTuple):
     step: int
 
 
+def _sum_over_ranks(grads: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """Each gradient summed over the mesh's ranks, in one all-reduce."""
+    if not is_multi(mesh):
+        return grads
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    return [v.view_as(g) for v, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def ssl_loss_and_grads(model: SSLModel, x_i: torch.Tensor, x_j: torch.Tensor,
-                       rng, temperature: float = 0.5):
+                       rng, temperature: float = 0.5, mesh=None):
     """(loss, gradients aligned with ``model.parameters()``) of one step on
     views ``x_i``, ``x_j`` with the step key ``rng``; moves the running
-    statistics twice."""
+    statistics twice. On a ``mesh`` of W ranks ``x_i``, ``x_j`` are this
+    rank's rows of the global views, and the loss and the gradients are
+    the global batch's, on every rank."""
     model.train()
     params = list(model.parameters())
+    group = mesh.group if is_multi(mesh) else None
     with full_float32():
-        z_i = model(x_i, dropout_rng=rng)
-        z_j = model(x_j, dropout_rng=threefry.fold_in(rng, 1))
-        loss = nt_xent_loss(z_i, z_j, temperature)
+        z_i = model(x_i, dropout_rng=rng, batch_group=group)
+        z_j = model(x_j, dropout_rng=threefry.fold_in(rng, 1),
+                    batch_group=group)
+        loss = nt_xent_loss(gather_rows_grad(z_i, mesh),
+                            gather_rows_grad(z_j, mesh), temperature)
         grads = torch.autograd.grad(loss, params)
-    return loss.detach(), list(grads)
+    return loss.detach(), _sum_over_ranks(list(grads), mesh)
 
 
 def create_ssl_train_step(model: SSLModel, tx: ClipAdamW,
                           temperature: float = 0.5) -> Callable:
-    """Returns ``step(state, x_i, x_j, rng) -> (state, loss)``; ``rng`` is
-    a ``utils.threefry`` key. The step updates the model in place."""
+    """Returns ``step(state, x_i, x_j, rng, mesh=None) -> (state, loss)``;
+    ``rng`` is a ``utils.threefry`` key. The step updates the model in
+    place. With a ``mesh`` of W ranks it is one rank's part of the
+    data-parallel step (see the module note), where the JAX step is one
+    program over the global batch whatever its placement."""
 
-    def step(state: SSLTrainState, x_i, x_j, rng):
-        loss, grads = ssl_loss_and_grads(model, x_i, x_j, rng, temperature)
+    def step(state: SSLTrainState, x_i, x_j, rng, mesh=None):
+        loss, grads = ssl_loss_and_grads(model, x_i, x_j, rng, temperature,
+                                         mesh)
         tx.step(list(model.parameters()), grads, state.opt_state)
         return SSLTrainState(state.params, state.batch_stats,
                              state.opt_state, state.step + 1), loss
@@ -126,19 +161,22 @@ def load_checkpoint(path: str | Path, template: dict) -> dict:
 
 def _train_device(device, mesh, what: str) -> torch.device:
     if mesh is not None:
-        if mesh.size != 1:
-            raise NotImplementedError(
-                f"{what} on a mesh of {mesh.size} devices: data-parallel "
-                "training is ROADMAP.md queue 1, item 5")
-        return mesh.devices[0]
+        if mesh.size > 1 and mesh.group is None:
+            raise ValueError(
+                f"{what} on a mesh of {mesh.size} devices without a process "
+                "group: build the mesh with parallel.create_mesh inside the "
+                "ranks (parallel.launch.run_ranks, or torchrun)")
+        return mesh.device
     return resolve_device(device, what)
 
 
 def _epochs(state, step_batches, epochs, save_dir, save_every,
-            early_stop_patience, sync_every_step):
+            early_stop_patience, sync_every_step, lead: bool = True):
     """The loop both trainers share: per epoch ``step_batches(state)``
-    yields (state, loss) a step; checkpoints and early stopping."""
-    log = _logger()
+    yields (state, loss) a step; checkpoints and early stopping. Only the
+    ``lead`` rank writes checkpoints and logs."""
+    info = _logger().info if lead else (lambda *args: None)
+    save = save_checkpoint if lead else (lambda path, state: None)
     history: list[float] = []
     best_loss = float("inf")
     patience = 0
@@ -150,20 +188,20 @@ def _epochs(state, step_batches, epochs, save_dir, save_every,
         losses = [float(v) for v in losses]
         epoch_loss = float(np.mean(losses)) if losses else float("inf")
         history.append(epoch_loss)
-        log.info("epoch %d: loss=%.4f (%.1fs)", epoch, epoch_loss,
-                 time.time() - t0)
+        info("epoch %d: loss=%.4f (%.1fs)", epoch, epoch_loss,
+             time.time() - t0)
         if epoch_loss < best_loss:
             best_loss = epoch_loss
             patience = 0
-            save_checkpoint(save_dir / "ssl_best.msgpack", state)
+            save(save_dir / "ssl_best.msgpack", state)
         else:
             patience += 1
             if patience >= early_stop_patience:
-                log.info("early stop at epoch %d", epoch)
+                info("early stop at epoch %d", epoch)
                 break
         if save_every and (epoch + 1) % save_every == 0:
-            save_checkpoint(save_dir / f"ssl_epoch{epoch + 1}.msgpack", state)
-    save_checkpoint(save_dir / "ssl_model_final.msgpack", state)
+            save(save_dir / f"ssl_epoch{epoch + 1}.msgpack", state)
+    save(save_dir / "ssl_model_final.msgpack", state)
     return state, history
 
 
@@ -185,7 +223,8 @@ def train_ssl(model: SSLModel,
               device=None) -> tuple[SSLTrainState, list[float]]:
     """Train on host-rendered views: ``batches()`` returns an iterator of
     (x_i, x_j) two-view numpy batches for one epoch. On ``device`` (default:
-    the card), or the one device of ``mesh``."""
+    the card), or data-parallel on ``mesh`` (see the module note: every
+    rank passes the same global batches and keeps its rows)."""
     device = _train_device(device, mesh, "train_ssl")
     save_dir = Path(save_dir)
     schedule = cosine_warmup_schedule(lr, warmup_epochs * steps_per_epoch,
@@ -193,19 +232,22 @@ def train_ssl(model: SSLModel,
     tx = ClipAdamW(grad_clip, schedule, weight_decay)
     rng = threefry.key(seed)
     state = init_ssl_state(model.to(device), rng, input_shape, tx)
+    broadcast_state(model, mesh)
     step_fn = create_ssl_train_step(model, tx, temperature)
 
     def step_batches(state):
         nonlocal rng
         for x_i, x_j in batches():
-            xi = torch.from_numpy(np.asarray(x_i, np.float32)).to(device)
-            xj = torch.from_numpy(np.asarray(x_j, np.float32)).to(device)
+            xi, xj = (torch.from_numpy(np.ascontiguousarray(rank_rows(
+                np.asarray(x, np.float32), mesh))).to(device)
+                for x in (x_i, x_j))
             rng, sub = threefry.split(rng)
-            state, loss = step_fn(state, xi, xj, sub)
+            state, loss = step_fn(state, xi, xj, sub, mesh)
             yield state, loss
 
     return _epochs(state, step_batches, epochs, save_dir, save_every,
-                   early_stop_patience, sync_every_step=True)
+                   early_stop_patience, sync_every_step=True,
+                   lead=mesh is None or mesh.rank == 0)
 
 
 def device_views(data_dev: torch.Tensor, idx: torch.Tensor, rng,

@@ -412,7 +412,8 @@ def test_run_all_sorts_into_the_dataset_dir(tmp_path, monkeypatch):
     "clustering.metrics.evaluate_clustering",
     "train.ssl_train.train_ssl", "train.ssl_train.train_ssl_device",
     "train.seg_train.train_from_config",
-    "classifier.visualize.visualize_embeddings"])
+    "classifier.visualize.visualize_embeddings",
+    "parallel.launch.run_ranks", "entry.dryrun_multichip"])
 def test_ssl_front_defaults_to_the_card_and_raises_without_one(
         entry, tmp_path, monkeypatch):
     """The SSL front's entry points run on the card unless the caller asks
@@ -449,7 +450,9 @@ def test_ssl_front_defaults_to_the_card_and_raises_without_one(
                 None, np.zeros((2, 8, 8), np.uint8), 1),
             "train.seg_train.train_from_config": (str(cfg),),
             "classifier.visualize.visualize_embeddings": (
-                x, labels, tmp_path / "fig" / "e.png")}[entry]
+                x, labels, tmp_path / "fig" / "e.png"),
+            "parallel.launch.run_ranks": (print, 1),
+            "entry.dryrun_multichip": (1,)}[entry]
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(*args, device=device)

@@ -540,10 +540,13 @@ def test_train_ssl_device_loop_and_its_first_step(tmp_path):
 
 
 def test_train_refuses_a_mesh_of_more_than_one_device():
+    """A mesh of two devices and no process group is refused: training on
+    W ranks takes a mesh built inside them
+    (``tests/test_torch_distributed.py``)."""
     from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
         Mesh)
     mesh = Mesh((torch.device("cpu"), torch.device("cpu")), "data")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="without a process group"):
         TT.train_ssl(SSLModel(**TINY), lambda: iter([]), 1, mesh=mesh)
 
 
