@@ -1491,12 +1491,13 @@ def file_pipeline_phase(dev, build, card) -> dict:
 
 FORMATS_DIR = ROOT / "tests" / "fixtures" / "formats"
 # the print fixtures (tools/format_fixtures.py) and what stands in for each
-# in the all-baseline twin run: the JPEGs their baseline twin, the lossless
-# files a PNG the port writes from their pixels
+# in the all-baseline twin run: the progressive JPEGs their baseline twin,
+# every other file a PNG the port writes from its pixels
 FORMAT_PRINTS = ["progressive.jpg", "progressive_colour.jpg", "none.tif",
                  "deflate.tif", "packbits.tif", "grey16.png", "palette.png",
                  "adam7.png", "bmp32.bmp", "rle8.bmp", "exif_o6.png",
-                 "exif_o3.tif", "lzw.tif"]
+                 "exif_o3.tif", "jpeg_ycbcr.tif", "cmyk.jpg", "g4.tif",
+                 "lzw.tif"]
 FORMAT_SUBJECTS = (1, 2, 3, 4)
 
 
@@ -1509,6 +1510,17 @@ def _reader_kind(name: str) -> str:
         return "progressive JPEG"
     if stem.startswith("jpeg_baseline"):
         return "baseline colour JPEG"
+    if stem.startswith(("jpeg_cmyk", "jpeg_ycck")):
+        return "CMYK and YCCK JPEG"
+    if stem.startswith("jpeg_rgb_coded"):
+        return "RGB-coded JPEG"
+    if stem.startswith(("tiff_jpeg", "tiff_fill_order_2_jpeg")):
+        return "TIFF JPEG"
+    if stem.startswith("tiff_ccitt") or stem.startswith(tuple(
+            f"tiff_fill_order_2_{c}" for c in ("rle", "g3", "g4"))):
+        return "TIFF CCITT"
+    if stem.startswith(("tiff_ycbcr", "tiff_cmyk", "tiff_cielab")):
+        return "TIFF YCbCr, CMYK, CIELab"
     return {".jpg": "JPEG (Exif)", ".png": "PNG", ".bmp": "BMP",
             ".tif": "TIFF"}[Path(stem).suffix]
 
@@ -1521,9 +1533,10 @@ def formats_phase(dev, build, card) -> dict:
     fixtures (progressive and colour JPEG, TIFF without compression, with
     Deflate, PackBits, and LZW written by the port, 16-bit, palette and
     Adam7 PNG, 32-bit and RLE8 BMP, a PNG and a TIFF turned by their
-    orientation), and over its twin tree (each JPEG's baseline twin, each
-    lossless file a PNG of its pixels, the LZW TIFF the JPEG it was
-    decoded from). Fails unless only the corrupt TIFF is skipped, each
+    orientation, a TIFF of YCbCr JPEG strips, an Adobe CMYK JPEG and a
+    CCITT Group 4 TIFF), and over its twin tree (each progressive JPEG's
+    baseline twin, every other file a PNG of its pixels, the LZW TIFF the
+    JPEG it was decoded from). Fails unless only the corrupt TIFF is skipped, each
     format file's minutiae JSON and debug mask equal its twin's, and the
     EERs and scores are equal. One ``visualize_orientation`` on a 320x256
     print is timed too."""
@@ -1598,9 +1611,9 @@ def formats_phase(dev, build, card) -> dict:
                 twin, twin_ext = orig.read_bytes(), ".jpg"
             else:
                 data = (FORMATS_DIR / "prints" / kind).read_bytes()
-                if ext == ".jpg":
-                    twin = (FORMATS_DIR / "prints" / f"base_{kind}").read_bytes()
-                    twin_ext = ".jpg"
+                base = FORMATS_DIR / "prints" / f"base_{kind}"
+                if base.is_file():
+                    twin, twin_ext = base.read_bytes(), ".jpg"
                 else:
                     twin = codec.encode_png(codec.decode_gray(data, kind))
                     twin_ext = ".png"

@@ -20,7 +20,9 @@ failing rank's traceback. Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
 set) this process is one rank: it joins that group (``env://``), runs
 ``fn`` and returns its own result alone, in a list of one.
 
-``fn`` and ``args`` are pickled: ``fn`` must be a module-level function.
+``fn`` and ``args`` are pickled: ``fn`` must be a module-level function;
+a rank that cannot start (a lambda, an argument that does not pickle)
+raises ``RankError`` chained from the pickling error.
 The ranks run on the cards unless the caller passes ``device="cpu"``; with
 no card, the default raises before any rank starts. The backend follows
 the device: NCCL for ``"cuda"``, gloo for ``"cpu"``; ``backend`` overrides
@@ -140,10 +142,18 @@ def run_ranks(fn, n: int, *args, backend: str | None = None,
             for rank in range(n):
                 recv, send = ctx.Pipe(duplex=False)
                 conns.append(recv)
-                procs.append(ctx.Process(target=_rank_main, daemon=True, args=(
+                proc = ctx.Process(target=_rank_main, daemon=True, args=(
                     fn, args, rank, n, device, _backend(device, backend),
-                    store, timeout, send)))
-                procs[-1].start()
+                    store, timeout, send))
+                try:
+                    proc.start()
+                except (pickle.PicklingError, AttributeError, TypeError) as e:
+                    send.close()
+                    raise RankError(
+                        f"rank {rank} of {n} did not start: fn and args must "
+                        "be picklable, and fn a module-level function "
+                        f"({type(e).__name__}: {e})") from e
+                procs.append(proc)  # only started ranks are stopped
                 send.close()        # a rank that dies leaves EOF behind
             waiting = dict(enumerate(conns))
             while waiting:

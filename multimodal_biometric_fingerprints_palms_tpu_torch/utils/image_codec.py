@@ -7,12 +7,16 @@ holds every kind below against OpenCV).
 Read:
 
 - JPEG, baseline (SOF0/SOF1) and progressive (SOF2, ``jpeg_progressive.py``),
-  Huffman-coded, 8-bit, 1 or 3 (YCbCr) components, any integral sampling
+  Huffman-coded, 8-bit, 1, 3 or 4 components, any integral sampling
   factors, interleaved or not, restart markers, tables defined between
-  scans. Grey is the luma plane through libjpeg's integer ``JDCT_ISLOW``
-  inverse DCT; colour adds libjpeg-turbo's fancy upsampling (h2v1, h2v2,
-  h1v2 triangle filters, box replication otherwise) and its fixed-point
-  ``ycc_rgb_convert``.
+  scans. The colour space is libjpeg's guess (JFIF and Adobe markers,
+  component ids): grey, YCbCr, RGB, CMYK or YCCK. Grey of a YCbCr file is
+  the luma plane through libjpeg's integer ``JDCT_ISLOW`` inverse DCT;
+  colour adds libjpeg-turbo's fancy upsampling (h2v1, h2v2, h1v2 triangle
+  filters, box replication otherwise) and its fixed-point
+  ``ycc_rgb_convert``. An RGB-coded file keeps its samples (grey through
+  libjpeg's ``rgb_gray_convert``); CMYK and YCCK (``ycck_cmyk_convert``)
+  go through OpenCV's own ``icvCvt_CMYK2BGR`` and ``icvCvt_CMYK2Gray``.
 - PNG of every colour type and bit depth (1, 2, 4, 8, 16), palette, Adam7
   interlacing, all five filters: 16 bits cut to their high byte, low depths
   scaled, alpha and ``tRNS`` dropped, colour to grey by libpng's
@@ -21,9 +25,10 @@ Read:
   fields), 24 and 32 bits, rows either way up, as OpenCV's own reader;
   also with the 12-byte OS/2 header (not at 16 bits, which OpenCV
   refuses).
-- TIFF (``tiff.py``): strips or tiles, none, LZW, Deflate or PackBits,
-  predictors 1 and 2, 1 to 16 bits, grey, RGB, RGBA and palette, as
-  libtiff's RGBA reader gives them to OpenCV.
+- TIFF (``tiff.py``): strips or tiles, none, LZW, Deflate, PackBits, JPEG
+  (decoded here) or CCITT (``ccitt.py``), predictors 1 and 2, either fill
+  order, 1 to 16 bits, grey, RGB, RGBA, palette, YCbCr, CMYK and CIELab,
+  as libtiff's RGBA reader gives them to OpenCV.
 - The EXIF orientation of JPEG (APP1), PNG (``eXIf``) and TIFF (tag 274)
   files turns the pixels as OpenCV's readers turn them
   (``orientation_tags.py``).
@@ -34,11 +39,11 @@ OpenCV's strip height); the JPEG and TIFF files are byte-equal to
 ``cv2.imwrite``'s.
 
 Refused, with ``ImageFormatError`` naming the file and the kind:
-arithmetic-coded, lossless, hierarchical and 12-bit JPEG, CMYK and YCCK
-(4-component) and RGB-coded 3-component JPEG; a progressive JPEG whose
-scans stop early (libjpeg would show it smoothed); TIFF with JPEG, CCITT
-or any other compression, float or signed samples, LSB-first bit order or
-another photometric interpretation; every other format (GIF, WebP, ...).
+arithmetic-coded, lossless, hierarchical and 12-bit JPEG; a progressive
+JPEG whose scans stop early (libjpeg would show it smoothed); TIFF with
+RLEW, old-style JPEG or any other compression, float samples, or another
+photometric interpretation (``tiff.py``); every other format (GIF, WebP,
+...).
 
 ``codec_base.py`` holds what the codec's modules share (the error, the
 zigzag order, the bit windows). The baseline Huffman decoder runs vectorised over every bit position of
@@ -307,6 +312,7 @@ class _Frame:
         self.progressive = False
         self.adobe_transform = None
         self.jfif = False
+        self.color = None           # colour space, fixed at the first scan
         self.coef = {}              # component -> (gy, gx, 64) int32
         self.coef_bits = {}         # component -> last Al of each term
         self.latched = {}           # component -> its table at first scan
@@ -479,8 +485,11 @@ def _decode_blocks(win, s_y, seg_y, dl: _HuffLut, al: _HuffLut) -> np.ndarray:
     return coef
 
 
-def _read_jpeg(data: bytes, name: str, want: str) -> _Frame:
-    """Parse a JPEG file and decode the scans of the wanted components."""
+def _read_jpeg(data: bytes, name: str, want: str,
+               color: str | None = None) -> _Frame:
+    """Parse a JPEG file and decode the scans of the wanted components.
+    ``color`` overrides the colour space libjpeg would guess
+    (``_color_space``), as libtiff does for a TIFF's JPEG strips."""
     if data[:2] != b"\xff\xd8":
         raise ImageFormatError(f"{name}: not a JPEG file")
     fr = _Frame(want)
@@ -517,11 +526,7 @@ def _read_jpeg(data: bytes, name: str, want: str) -> _Frame:
             h, w, nf = struct.unpack(">HHB", seg[1:6])
             if h == 0 or w == 0:
                 raise ImageFormatError(f"{name}: JPEG without a frame size")
-            if nf == 4:
-                raise ImageFormatError(
-                    f"{name}: 4-component (CMYK or YCCK) JPEG is not "
-                    "supported")
-            if nf not in (1, 3):
+            if nf not in (1, 3, 4):
                 raise ImageFormatError(
                     f"{name}: JPEG with {nf} components is not supported")
             comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
@@ -569,6 +574,10 @@ def _read_jpeg(data: bytes, name: str, want: str) -> _Frame:
         elif m == 0xDA:
             if fr.size is None:
                 raise ImageFormatError(f"{name}: scan before frame header")
+            if fr.color is None:
+                fr.color = color or _color_space(fr)
+                if fr.color not in ("grey", "ycc"):
+                    fr.want = "all"     # grey needs every component
             try:
                 i = _decode_scan(fr, data, i + 2, length)
             except ImageFormatError as e:
@@ -577,9 +586,6 @@ def _read_jpeg(data: bytes, name: str, want: str) -> _Frame:
         i += length
     if fr.size is None or not fr.latched:
         raise ImageFormatError(f"{name}: JPEG without image data")
-    if len(fr.comps) == 3 and not _is_ycbcr(fr):
-        raise ImageFormatError(
-            f"{name}: RGB-coded 3-component JPEG is not supported")
     if fr.progressive:
         try:
             check_complete(fr)
@@ -603,10 +609,20 @@ def _component_plane(fr: _Frame, ci: int) -> np.ndarray:
 
 
 def decode_jpeg_gray(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W) uint8 luma of a baseline or progressive JPEG, equal to
-    OpenCV's ``IMREAD_GRAYSCALE`` before the EXIF orientation is applied."""
+    """(H, W) uint8 grey of a baseline or progressive JPEG, equal to
+    OpenCV's ``IMREAD_GRAYSCALE`` before the EXIF orientation is applied:
+    the luma plane of a grey or YCbCr file, libjpeg's ``rgb_gray_convert``
+    of an RGB-coded one, OpenCV's ``icvCvt_CMYK2Gray`` of a CMYK or YCCK
+    one."""
     fr = _read_jpeg(data, name, "luma")
-    return np.ascontiguousarray(_component_plane(fr, 0))
+    if fr.color in ("grey", "ycc"):
+        return np.ascontiguousarray(_component_plane(fr, 0))
+    if fr.color == "rgb":
+        r, g, b = _planes(fr)
+        return ((19595 * r + 38470 * g + 7471 * b + (1 << 15)) >> 16).astype(
+            np.uint8)
+    c, m, y = _cmyk_rgb(fr)
+    return _bgr_to_gray_cv(y, m, c)
 
 
 def _fancy_pairs(p: np.ndarray, axis: int, bias_lo: int, bias_hi: int,
@@ -663,29 +679,75 @@ def _ycc_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def _planes(fr: _Frame) -> list[np.ndarray]:
+    """Every component's samples, upsampled to the frame's size (int64)."""
+    hmax = max(c[1] for c in fr.comps)
+    vmax = max(c[2] for c in fr.comps)
+    return [_upsample(_component_plane(fr, ci), hmax // c[1], vmax // c[2],
+                      fr.size) for ci, c in enumerate(fr.comps)]
+
+
+def _cmyk_rgb(fr: _Frame) -> list[np.ndarray]:
+    """R, G, B planes of a CMYK or YCCK file as OpenCV's JPEG reader makes
+    them: libjpeg gives CMYK (YCCK through ``ycck_cmyk_convert``: C, M, Y
+    are 255 less the YCbCr conversion, K as stored), then
+    ``icvCvt_CMYK2BGR`` takes the Adobe-style inverted samples:
+    ``k - ((255 - c) * k >> 8)``."""
+    p = _planes(fr)
+    if fr.color == "ycck":
+        cmy = 255 - _ycc_rgb(*p[:3]).astype(np.int64)
+        p = [cmy[..., 0], cmy[..., 1], cmy[..., 2], p[3]]
+    k = p[3]
+    return [k - ((255 - v) * k >> 8) for v in p[:3]]
+
+
 def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 3) uint8 RGB of a baseline or progressive JPEG, equal to
     OpenCV's ``IMREAD_COLOR`` (then ``COLOR_BGR2RGB``) before the EXIF
     orientation is applied: a grey file repeats its grey; a YCbCr file's
-    chroma is upsampled and converted as libjpeg-turbo does."""
+    chroma is upsampled and converted as libjpeg-turbo does; an RGB-coded
+    file keeps its upsampled samples; CMYK and YCCK as ``_cmyk_rgb``."""
     fr = _read_jpeg(data, name, "all")
-    y = _component_plane(fr, 0)
+    if fr.color == "grey":
+        return np.repeat(_component_plane(fr, 0)[..., None], 3, axis=2)
+    if fr.color in ("cmyk", "ycck"):
+        return np.stack(_cmyk_rgb(fr), axis=-1).astype(np.uint8)
+    p = _planes(fr)
+    if fr.color == "ycc":
+        return _ycc_rgb(*p)
+    return np.stack(p, axis=-1).astype(np.uint8)
+
+
+def decode_jpeg_samples(data: bytes, name: str,
+                        ycc: bool) -> tuple[np.ndarray, list]:
+    """((H, W, components) uint8 samples, the frame's components) of a JPEG
+    as libtiff's JPEG codec gives a TIFF strip: YCbCr converted to RGB by
+    libjpeg where ``ycc``, else every component as coded, upsampled."""
+    fr = _read_jpeg(data, name, "all", "ycc" if ycc else "rgb")
+    p = _planes(fr)
+    if ycc:
+        if len(p) != 3:
+            raise ImageFormatError(f"{name}: YCbCr JPEG of {len(p)} "
+                                   "components")
+        return _ycc_rgb(*p), fr.comps
+    return np.stack(p, axis=-1).astype(np.uint8), fr.comps
+
+
+def _color_space(fr: _Frame) -> str:
+    """libjpeg's guess of the colour space (``default_decompress_parms``):
+    "grey", "ycc", "rgb", "cmyk" or "ycck"."""
     if len(fr.comps) == 1:
-        return np.repeat(y[..., None], 3, axis=2)
-    hmax = max(c[1] for c in fr.comps)
-    vmax = max(c[2] for c in fr.comps)
-    planes = [_upsample(_component_plane(fr, ci), hmax // fr.comps[ci][1],
-                        vmax // fr.comps[ci][2], fr.size) for ci in range(3)]
-    return _ycc_rgb(*planes)
-
-
-def _is_ycbcr(fr: _Frame) -> bool:
-    """libjpeg's guess of a 3-component colour space (jdapimin.c)."""
+        return "grey"
+    if len(fr.comps) == 4:
+        if fr.adobe_transform is None or fr.adobe_transform == 0:
+            return "cmyk"
+        return "ycck"
     if fr.jfif:
-        return True
+        return "ycc"
     if fr.adobe_transform is not None:
-        return fr.adobe_transform != 0
-    return [c[0] for c in fr.comps] != [ord("R"), ord("G"), ord("B")]
+        return "ycc" if fr.adobe_transform else "rgb"
+    return ("rgb" if [c[0] for c in fr.comps] == [ord("R"), ord("G"), ord("B")]
+            else "ycc")
 
 
 # --- JPEG encode -----------------------------------------------------------

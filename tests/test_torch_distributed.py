@@ -136,6 +136,23 @@ def test_a_failing_rank_fails_the_parent_with_its_traceback(tmp_path):
     assert _gone(tmp_path)
 
 
+@pytest.mark.parametrize("fn", [lambda: 1, W.failing_rank],
+                         ids=["lambda", "unpicklable argument"])
+def test_a_rank_that_cannot_start_names_the_pickling_failure(fn):
+    """Spawned ranks pickle ``fn`` and ``args``: a lambda, or an argument
+    such as a lock, fails ``start()``. The launcher raises that failure as
+    a ``RankError`` chained from it, not the ``AssertionError`` of joining
+    a process that never started."""
+    import threading
+    args = () if fn.__name__ == "<lambda>" else (threading.Lock(),)
+    with pytest.raises(launch.RankError, match="picklable") as e:
+        launch.run_ranks(fn, 2, *args, device="cpu", timeout=LAUNCH_S)
+    assert "did not start" in str(e.value)
+    assert isinstance(e.value.__cause__, (
+        __import__("pickle").PicklingError, AttributeError, TypeError))
+    assert not isinstance(e.value.__context__, AssertionError)
+
+
 def test_a_hanging_collective_fails_at_the_time_limit(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(launch.RankError, match="did not finish within 10 s"):

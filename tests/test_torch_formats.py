@@ -1,9 +1,11 @@
 """The port's codec against OpenCV on every kind of image file the JAX
 package reads through ``cv2.imread``: EXIF orientation in JPEG, PNG and
-TIFF; progressive and colour JPEG at every sampling layout; PNG of every
-bit depth, palette and Adam7; BMP of 1 to 32 bits, bit fields and RLE;
-TIFF in every compression the port reads, both predictors, strips and
-tiles, 1, 8 and 16 bits and both byte orders; and TIFF written.
+TIFF; progressive and colour JPEG at every sampling layout, CMYK, YCCK and
+RGB-coded JPEG; PNG of every bit depth, palette and Adam7; BMP of 1 to 32
+bits, bit fields and RLE; TIFF in every compression the port reads (JPEG
+strips and CCITT among them), both predictors, both fill orders, strips
+and tiles, 1, 8 and 16 bits, signed samples, both byte orders, YCbCr,
+CMYK and CIELab; and TIFF written.
 
 The files are ``tests/fixtures/formats/`` (``tools/format_fixtures.py``
 writes them). Each decodes, grey and RGB, to exactly what
@@ -159,7 +161,20 @@ def _bytes_of(kind: str) -> bytes:
         "TIFF directory past the end": tif[:4] + struct.pack("<I", 10 ** 6)
         + tif[8:],
         "baseline JPEG": jpg, "PNG": png, "BMP": bmp, "TIFF": tif,
+        "float32 TIFF": _float_tiff(),
+        "signed 16-bit TIFF": FF._cv(".tif", grey.astype(np.int16) * 200
+                                     - 25000),
+        "LZMA TIFF": FF._pil(grey, "TIFF", compression="lzma"),
+        "Zstandard TIFF": FF._pil(grey, "TIFF", compression="zstd"),
+        "WebP TIFF": _tiff_with(259, 50001),
+        "TIFF JPEG sampled above its tag": _tiff_with(
+            530, 1, 1, data=FF.tiff_jpeg(FF.source(channels=3), 16, "420")),
+        "TIFF JPEG sampled below its tag": _tiff_with(
+            530, 2, 2, data=FF.tiff_jpeg(FF.source(channels=3), 16, "444")),
     }[kind]
+
+
+
 
 
 @pytest.mark.parametrize("kind", [
@@ -169,7 +184,10 @@ def _bytes_of(kind: str) -> bytes:
     "BMP header only", "BMP cut in half", "BMP of 7 bits",
     "BMP header of 20 bytes", "OS/2 BMP", "OS/2 BMP header only",
     "OS/2 BMP of 16 bits", "TIFF cut in half",
-    "TIFF directory past the end", "baseline JPEG", "PNG", "BMP", "TIFF"])
+    "TIFF directory past the end", "baseline JPEG", "PNG", "BMP", "TIFF",
+    "float32 TIFF", "signed 16-bit TIFF", "LZMA TIFF", "Zstandard TIFF",
+    "WebP TIFF", "TIFF JPEG sampled above its tag",
+    "TIFF JPEG sampled below its tag"])
 def test_port_refuses_exactly_what_opencv_refuses(kind):
     """Among broken and whole files: the port raises ``ImageFormatError``
     where ``cv2.imdecode`` returns None, and reads where OpenCV reads."""
@@ -190,14 +208,18 @@ def _patched_sof(marker: int) -> bytes:
     return bytes(jpg)
 
 
-def _tiff_with(tag: int, value: int) -> bytes:
-    data = bytearray(FF.tiff(FF.source(), compression=1))
+def _tiff_with(tag: int, *values: int, data: bytes | None = None) -> bytes:
+    """A little-endian TIFF (``data``, else an uncompressed one of the
+    source) with the SHORT values of ``tag`` replaced."""
+    data = bytearray(FF.tiff(FF.source(), compression=1) if data is None
+                     else data)
     at = struct.unpack("<I", data[4:8])[0]
     n = struct.unpack("<H", data[at:at + 2])[0]
     for k in range(n):
         e = at + 2 + 12 * k
         if struct.unpack("<H", data[e:e + 2])[0] == tag:
-            data[e + 8:e + 10] = struct.pack("<H", value)
+            data[e + 8:e + 8 + 2 * len(values)] = struct.pack(
+                "<" + "H" * len(values), *values)
             return bytes(data)
     raise AssertionError(tag)
 
@@ -209,12 +231,14 @@ def _tiff_with(tag: int, value: int) -> bytes:
     ("12-bit JPEG", lambda: (lambda d: d[:d.find(b"\xff\xc0") + 4] + b"\x0c"
                              + d[d.find(b"\xff\xc0") + 5:])(
         FF._cv(".jpg", FF.source()))),
-    ("4-component (CMYK or YCCK) JPEG", lambda: FF._pil(
-        __import__("PIL.Image", fromlist=["Image"]).fromarray(
-            FF.source(channels=3)).convert("CMYK"), "JPEG")),
-    ("TIFF with JPEG compression", lambda: _tiff_with(259, 7)),
-    ("TIFF with CCITT Group 4 compression", lambda: _tiff_with(259, 4)),
-    ("TIFF with float or signed samples", lambda: _float_tiff()),
+    ("TIFF with float samples", lambda: _float_tiff()),
+    ("TIFF with RLEW", lambda: _rlew_tiff()),
+    ("TIFF with old-style JPEG compression", lambda: _tiff_with(259, 6)),
+    ("TIFF with JPEG XL compression", lambda: _tiff_with(259, 50002)),
+    ("TIFF with LERC compression", lambda: _tiff_with(259, 34887)),
+    ("TIFF with JPEG 2000 compression", lambda: _tiff_with(259, 34712)),
+    ("TIFF with PixarLog compression", lambda: _tiff_with(259, 32909)),
+    ("old-style (LSB-first) LZW", lambda: _old_style_lzw()),
 ])
 def test_formats_left_out_are_refused_by_name(what, make):
     with pytest.raises(C.ImageFormatError) as e:
@@ -222,11 +246,68 @@ def test_formats_left_out_are_refused_by_name(what, make):
     assert what.lower() in str(e.value).lower()
 
 
+def _rlew_tiff(bits=None) -> bytes:
+    from PIL import Image
+    return FF._pil(Image.fromarray(FF.source() > 128 if bits is None
+                                   else bits), "TIFF",
+                   compression="tiff_raw_16")
+
+
+def _old_style_lzw() -> bytes:
+    """An LZW TIFF whose strip starts as the LSB-first LZW of libtiff's
+    early versions does (a clear code read MSB first as 0x00 0x01)."""
+    data = bytearray(FF.tiff(FF.source(), compression=5))
+    data[8:10] = b"\x00\x01"
+    return bytes(data)
+
+
+def test_rlew_stays_refused_where_libtiff_reads_past_errors():
+    """A recorded deviation (ROADMAP.md): OpenCV's libtiff reads PIL's RLEW
+    (compression 32771) file only while it reports bad code words and
+    premature EOLs, and what it returns equals PIL's source in under 60% of
+    its pixels (56% on the fixtures' 64x80 source, 67% on the 29x35 one);
+    copying libtiff's error recovery is no parity, so the port refuses the
+    file by name."""
+    bits = FF.source(64, 80, seed=2) > 128
+    data = _rlew_tiff(bits)
+    said = FF.opencv_messages(data)
+    assert "Bad code word" in said or "Premature EOL" in said
+    g = _cv2(data)[0]
+    assert g is not None and (g == np.where(bits, 255, 0)).mean() < 0.6
+    with pytest.raises(C.ImageFormatError, match="RLEW"):
+        C.decode_gray(data)
+
+
 def _float_tiff() -> bytes:
     from PIL import Image
     buf = io.BytesIO()
     Image.fromarray(FF.source().astype(np.float32)).save(buf, "TIFF")
     return buf.getvalue()
+
+
+@pytest.mark.parametrize("mode,fixed", [
+    ("YCbCr", (0, 16, 128, 235, 255)), ("CMYK", (0, 90, 255)),
+    ("LAB", (0, 20, 23, 128, 255))])
+def test_tiff_colour_spaces_match_opencv_on_every_pair(mode, fixed):
+    """YCbCr, CMYK and CIELab TIFF through libtiff's conversions: every
+    pair of the two chroma (ink) samples, at luma (black, lightness) values
+    that include both ends and CIELab's linear segment below L* 8.856
+    (byte 22), held to OpenCV pixel for pixel."""
+    from PIL import Image
+    pairs = np.stack(np.meshgrid(np.arange(256), np.arange(256),
+                                 indexing="ij"), -1).reshape(256, 256, 2)
+    rows = []
+    for v in fixed:
+        first = np.full((256, 256, 1), v)
+        px = (np.concatenate([first, pairs], -1) if mode != "CMYK" else
+              np.concatenate([pairs, 255 - first, first], -1))
+        rows.append(px)
+    px = np.concatenate(rows).astype(np.uint8)
+    data = FF._pil(Image.frombytes(mode, (256, px.shape[0]), px.tobytes()),
+                   "TIFF")
+    g, c = _cv2(data)
+    np.testing.assert_array_equal(C.decode_rgb(data), c)
+    np.testing.assert_array_equal(C.decode_gray(data), g)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (29, 35), (320, 240), (5, 2000),
@@ -267,7 +348,7 @@ def test_fixture_digests_match_the_files_on_disk():
                      if p.is_file() and p.name != "expected.json")
     assert on_disk == NAMES
     total = sum((FIXTURES / n).stat().st_size for n in NAMES)
-    assert total < 1_500_000
+    assert total < 1_650_000
 
 
 def test_runners_read_and_skip_the_same_files(tmp_path, monkeypatch):
@@ -314,6 +395,47 @@ def test_runners_read_and_skip_the_same_files(tmp_path, monkeypatch):
     for name in masks:
         mask = (tmp_path / "port" / "debug" / "cluster_0" / "mask" / name)
         assert cv2.imread(str(mask), cv2.IMREAD_GRAYSCALE) is not None
+
+
+def test_runners_read_the_newly_read_formats_alike(tmp_path, monkeypatch):
+    """The files the port's codec learned last, TIFF with JPEG strips
+    (YCbCr, grey in strips) and CCITT Group 4 and Group 3, Adobe CMYK and
+    RGB-coded JPEG, and YCbCr, CMYK and CIELab TIFF, through both packages'
+    preprocessing runners (the JAX one reading through OpenCV): every file
+    read by both, and the same outputs under the same names, each debug
+    mask equal."""
+    import shutil
+    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing.runner import (
+        run_preprocessing as t_run)
+    from multimodal_biometric_fingerprints_palms_tpu.preprocessing.runner import (
+        run_preprocessing as j_run)
+    names = ("tiff_jpeg_pil_ycbcr.tif", "tiff_jpeg_cv2_grey_strips.tif",
+             "tiff_ccitt_g4_min_is_white.tif",
+             "tiff_ccitt_g3_2d_aligned_min_is_black.tif", "jpeg_cmyk.jpg",
+             "jpeg_ycck_progressive.jpg", "jpeg_rgb_coded.jpg",
+             "tiff_ycbcr_22.tif", "tiff_cmyk_pil.tif", "tiff_cielab_pil.tif")
+    src = tmp_path / "in" / "cluster_0"
+    src.mkdir(parents=True)
+    for name in names:
+        shutil.copy(FIXTURES / name, src / name)
+    monkeypatch.chdir(tmp_path)
+    j = j_run(tmp_path / "in", tmp_path / "jax", batch_size=16,
+              use_native_loader=False)
+    t = t_run(tmp_path / "in", tmp_path / "port", batch_size=16,
+              use_native_loader=False, device="cpu")
+    assert j["num_images"] == t["num_images"] == len(names)
+
+    def listing(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file())
+    assert listing(tmp_path / "jax") == listing(tmp_path / "port")
+    masks = listing(tmp_path / "port" / "debug" / "cluster_0" / "mask")
+    assert masks == sorted(names)
+    for name in masks:
+        a, b = (cv2.imread(str(tmp_path / r / "debug" / "cluster_0" / "mask"
+                               / name), cv2.IMREAD_GRAYSCALE) > 127
+                for r in ("jax", "port"))
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("orientation", [5, 6, 7, 8])

@@ -9,11 +9,14 @@ imports its own ``multimodal_biometric_fingerprints_palms_tpu_torch``:
 ``tools/polyu_set.py``'s 320x240 grey JPEGs (the first ``--files`` of 16
 subjects, written once by this checkout) are decoded with
 ``utils.image_codec.read_gray``, and where the checkout reads them, the
-format prints of ``tests/fixtures/formats/prints/``. Prints one JSON line
-a checkout: the mean and median ms a file of each kind, and the card's
-name and power limit when ``nvidia-smi`` answers (the decode runs on the
-host either way). Give the parent first and last (parent, change, change,
-parent) to see the spread.
+format prints of ``tests/fixtures/formats/prints/`` (this checkout's: a
+print an older checkout refuses is left out of its line). Each file is
+decoded ``REPS`` times and counts with its median, which a shared
+host's slow turns move less than one decode. Prints one JSON line a
+checkout: the mean and median over files of each kind, ms a file, and the
+card's name and power limit when ``nvidia-smi`` answers (the decode runs
+on the host either way). Give the parent first and last (parent, change,
+change, parent) to see the spread.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+REPS = 5                    # decodes of each file; its median counts
 
 CHILD = r"""
 import json, statistics, sys, time
@@ -33,15 +37,20 @@ from pathlib import Path
 sys.path.insert(0, sys.argv[1])
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils import image_codec
 paths = [Path(p) for p in json.loads(sys.argv[2])]
+reps = int(sys.argv[3])
 kinds = {}
 for p in paths:
     kind = "baseline JPEG" if p.parent.name != "prints" else "print " + p.name
-    t0 = time.perf_counter()
-    try:
-        image_codec.read_gray(p)
-    except image_codec.ImageFormatError:
-        continue
-    kinds.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        try:
+            image_codec.read_gray(p)
+        except image_codec.ImageFormatError:
+            break
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if ms:
+        kinds.setdefault(kind, []).append(statistics.median(ms))
 print(json.dumps({k: {"files": len(v), "mean_ms": statistics.fmean(v),
                       "median_ms": statistics.median(v)}
                   for k, v in kinds.items()}))
@@ -75,7 +84,8 @@ def main() -> None:
         for checkout in args.checkouts:
             out = subprocess.run(
                 [sys.executable, "-c", CHILD, str(Path(checkout).resolve()),
-                 json.dumps(jpegs + prints)], capture_output=True, text=True,
+                 json.dumps(jpegs + prints), str(REPS)],
+                capture_output=True, text=True,
                 check=True).stdout.strip().splitlines()[-1]
             print(json.dumps({"checkout": checkout, "card": card,
                               "ms": json.loads(out)}))

@@ -7,20 +7,28 @@
 Every file is small (29 x 35 pixels and the like) and made with OpenCV, PIL
 or the little writers below (PNG of every bit depth, palette and Adam7;
 BMP of 1 to 32 bits, bit fields and RLE; TIFF in strips or tiles, any byte
-order, compression, predictor and layout; Exif blocks). ``expected.json``
-holds OpenCV's decode of each: ``cv2.imdecode`` with ``IMREAD_GRAYSCALE``
-and with ``IMREAD_COLOR`` (then ``COLOR_BGR2RGB``), each as its shape and
-the sha256 of its bytes, so a machine without OpenCV can hold the port to
-it. ``tests/test_torch_formats.py`` derives the digests again from OpenCV.
+order, compression, predictor and layout, YCbCr data units, JPEG strips
+with shared tables; Exif blocks): among them CMYK, YCCK and RGB-coded JPEG,
+and TIFF with JPEG and CCITT compression, LSB-first fill order, signed
+samples and YCbCr, CMYK and CIELab pixels. ``expected.json`` holds
+OpenCV's decode of each: ``cv2.imdecode`` with ``IMREAD_GRAYSCALE`` and
+with ``IMREAD_COLOR`` (then ``COLOR_BGR2RGB``), each as its shape and the
+sha256 of its bytes, so a machine without OpenCV can hold the port to it.
+The script stops if OpenCV reports an error (libtiff's ``TIFF_Error``, a
+corrupt JPEG) while it reads a file: every fixture is one it reads
+cleanly. ``tests/test_torch_formats.py`` derives the digests again from
+OpenCV.
 
 ``prints/`` holds the 320 x 240 files of the card's formats phase
 (``chip_smoke.py``): the blob-constellation prints ``tools/polyu_set.py``
 draws for subjects 1 to 4 (``FORMAT_SUBJECTS``), stored as a progressive
 JPEG, a progressive colour JPEG (the print in all three channels, 4:2:0),
 TIFF without compression, with Deflate and with PackBits, 16-bit,
-palette and interlaced PNG, 32-bit and RLE8 BMP, and a PNG and a TIFF
-whose pixels are stored turned and carry the orientation that turns them
-back. Each JPEG has its baseline twin ``base_<name>.jpg``, the same print
+palette and interlaced PNG, 32-bit and RLE8 BMP, a PNG and a TIFF whose
+pixels are stored turned and carry the orientation that turns them back,
+a TIFF of YCbCr JPEG strips, an Adobe CMYK JPEG (the print as black ink)
+and a CCITT Group 4 TIFF (the print through a threshold). Each
+progressive JPEG has its baseline twin ``base_<name>.jpg``, the same print
 at the same quality, whose pixels equal its own; each lossless file holds
 the decode of a baseline JPEG of its print, so its pixels are ones the
 all-baseline tree can hold too.
@@ -361,12 +369,33 @@ def _sample_bytes(block: np.ndarray, bits: int, bo: str) -> bytes:
     return _pack_rows(block.reshape(rows, -1), bits).tobytes()
 
 
+def _ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """(rows, width, 3) Y, Cb, Cr as TIFF's subsampled data units: hs * vs
+    luma samples, then the block's mean Cb and Cr; edges replicated."""
+    rows, width = block.shape[:2]
+    ph, pw = -(-rows // vs) * vs, -(-width // hs) * hs
+    b = np.pad(block.astype(np.int64), ((0, ph - rows), (0, pw - width),
+                                         (0, 0)), mode="edge")
+    u = b.reshape(ph // vs, vs, pw // hs, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = u[..., 0].reshape(ph // vs, pw // hs, vs * hs)
+    c = (u[..., 1:].reshape(ph // vs, pw // hs, vs * hs, 2).sum(2)
+         + vs * hs // 2) // (vs * hs)
+    return np.concatenate([y, c], -1).astype(np.uint8).tobytes()
+
+
 def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
          compression: int = 1, predictor: int = 1, bo: str = "<",
          rows_per_strip: int | None = None, tile: tuple | None = None,
          planar: int = 1, colormap=None, extra_samples=None,
-         orientation: int | None = None, pages: int = 1) -> bytes:
-    """A TIFF of (H, W) or (H, W, C) samples (RGB[A] order)."""
+         orientation: int | None = None, pages: int = 1,
+         extra_tags=(), subsampling: tuple | None = None,
+         subsampling_tag: bool = True, strips: list | None = None) -> bytes:
+    """A TIFF of (H, W) or (H, W, C) samples (RGB[A] order). ``extra_tags``
+    are (tag, type, values) entries (type 5, rational, takes (numerator,
+    denominator) pairs); ``subsampling`` (hs, vs) stores YCbCr samples as
+    data units and writes tag 530 (unless ``subsampling_tag`` is False:
+    readers then take 2x2); ``strips`` are ready-made strips (JPEG
+    streams, say) to store in place of the samples."""
     s = px if px.ndim == 3 else px[..., None]
     h, w, spp = s.shape
     if photometric is None:
@@ -374,12 +403,12 @@ def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
     planes = [s] if planar == 1 else [s[..., c:c + 1] for c in range(spp)]
     pspp = spp if planar == 1 else 1
     chunks = []
-    if tile is None:
+    if strips is None and tile is None:
         rps = rows_per_strip or h
         for p in planes:
             for y in range(0, h, rps):
                 chunks.append(p[y:y + rps].reshape(-1, w * pspp))
-    else:
+    elif strips is None:
         th, tw = tile
         for p in planes:
             for y in range(0, h, th):
@@ -388,8 +417,12 @@ def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
                     part = p[y:y + th, x:x + tw]
                     t[:part.shape[0], :part.shape[1]] = part
                     chunks.append(t.reshape(th, tw * pspp))
-    blobs = []
+    blobs = [] if strips is None else list(strips)
     for c in chunks:
+        if subsampling is not None:
+            raw = _ycbcr_units(c.reshape(c.shape[0], w, 3), *subsampling)
+            blobs.append(_COMPRESS[compression](raw))
+            continue
         if predictor == 2:
             c = _predict(c, bits, pspp)
         blobs.append(_COMPRESS[compression](_sample_bytes(c, bits, bo)))
@@ -414,6 +447,10 @@ def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
             tag(320, 3, np.asarray(colormap).T.reshape(-1).tolist())
         if extra_samples is not None:
             tag(338, 3, [extra_samples])
+        if subsampling is not None and subsampling_tag:
+            tag(530, 3, subsampling)
+        for t, kind, vals in extra_tags:
+            tag(t, kind, vals)
         offsets, counts, pos = [], [], 8
         for b in blobs:
             offsets.append(pos)
@@ -432,7 +469,11 @@ def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
         out = struct.pack(bo + "H", len(entries))
         spill, spill_at = b"", at + 2 + 12 * len(entries) + 4
         for t, kind, vals in entries:
-            raw = struct.pack(bo + {3: "H", 4: "I"}[kind] * len(vals), *vals)
+            if kind == 5:
+                raw = b"".join(struct.pack(bo + "II", *v) for v in vals)
+            else:
+                raw = struct.pack(bo + {3: "H", 4: "I", 7: "B"}[kind]
+                                  * len(vals), *vals)
             if len(raw) <= 4:
                 out += struct.pack(bo + "HHI", t, kind, len(vals)) + raw.ljust(
                     4, b"\x00")
@@ -453,6 +494,92 @@ def tiff(px: np.ndarray, bits: int = 8, photometric: int | None = None,
     # took it would give another shape
     nxt = at + len(first)
     return out + ifd(at, nxt, w, h) + ifd(nxt, 0, w // 2, h // 2)
+
+
+def jpeg_split(jpeg: bytes) -> tuple[bytes, bytes]:
+    """(tables, strip) of a JPEG file as a TIFF's JPEG compression stores
+    it: ``JPEGTables`` (SOI, the DQT and DHT segments, EOI) and the
+    abbreviated stream of the strip (SOI, the frame and scan, EOI), APP
+    segments dropped."""
+    i, keep, tables = 2, [], []
+    while jpeg[i + 1] != 0xDA:
+        n = struct.unpack(">H", jpeg[i + 2:i + 4])[0]
+        seg = jpeg[i:i + 2 + n]
+        if jpeg[i + 1] in (0xDB, 0xC4):
+            tables.append(seg)
+        elif not 0xE0 <= jpeg[i + 1] <= 0xEF:
+            keep.append(seg)
+        i += 2 + n
+    return (b"\xff\xd8" + b"".join(tables) + b"\xff\xd9",
+            b"\xff\xd8" + b"".join(keep) + jpeg[i:])
+
+
+def tiff_jpeg(px: np.ndarray, rows_per_strip: int, sampling=None,
+              quality: int = 90, subsampling_tag=True,
+              tile: tuple | None = None) -> bytes:
+    """A TIFF whose strips (or ``tile`` (height, width) tiles, edges
+    replicated) are OpenCV's JPEGs of (H, W) grey or (H, W, 3) RGB pixels
+    (YCbCr, photometric 6, at ``sampling``, one of OpenCV's
+    ``IMWRITE_JPEG_SAMPLING_FACTOR_*`` names), tables shared in tag 347;
+    ``subsampling_tag`` False leaves tag 530 out (libtiff then takes 2x2)."""
+    import cv2
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality]
+    if sampling is not None:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sampling)]
+    if tile is None:
+        parts = [px[y:y + rows_per_strip]
+                 for y in range(0, px.shape[0], rows_per_strip)]
+    else:
+        th, tw = tile
+        h, w = px.shape[:2]
+        pad = ((0, -h % th), (0, -w % tw)) + ((0, 0),) * (px.ndim - 2)
+        full = np.pad(px, pad, mode="edge")
+        parts = [full[y:y + th, x:x + tw] for y in range(0, h, th)
+                 for x in range(0, w, tw)]
+    tables, strips = None, []
+    for part in parts:
+        t, strip = jpeg_split(_cv(".jpg", np.ascontiguousarray(
+            part if part.ndim == 2 else part[..., ::-1]), params))
+        assert tables in (None, t), "one set of tables for every strip"
+        tables = t
+        strips.append(strip)
+    extra = [(347, 7, list(tables))]
+    colour = px.ndim == 3
+    if colour and subsampling_tag:
+        hv = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2),
+              "411": (4, 1)}[sampling]
+        extra.append((530, 3, list(hv)))
+    return tiff(px, compression=7, photometric=6 if colour else 1,
+                rows_per_strip=rows_per_strip, tile=tile, strips=strips,
+                extra_tags=extra)
+
+
+def _adobe_transform(jpeg: bytes, transform: int | None) -> bytes:
+    """A JPEG with its Adobe (APP14) transform byte set, or with the
+    segment taken out (None)."""
+    i = jpeg.find(b"\xff\xee\x00\x0eAdobe")
+    assert i > 0, "an Adobe segment"
+    if transform is None:
+        return jpeg[:i] + jpeg[i + 16:]
+    b = bytearray(jpeg)
+    b[i + 15] = transform
+    return bytes(b)
+
+
+def runs_image(h: int, w: int, seed: int) -> np.ndarray:
+    """Bilevel rows of runs of every length, 0 to 2,700 pixels: every
+    CCITT make-up code."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(h):
+        row, colour = [], int(rng.integers(2))
+        while len(row) < w:
+            limit = int(rng.choice([4, 70, 2700]))
+            row += [colour] * int(rng.integers(0, limit))
+            colour ^= 1
+        rows.append(row[:w])
+    return np.array(rows, bool)
 
 
 # --- the cases ---------------------------------------------------------------
@@ -698,6 +825,125 @@ def cases() -> dict[str, bytes]:
                                               compression=5, predictor=2)
     out["tiff_orientation_tiles_o7.tif"] = tiff(grey, orientation=7,
                                                 compression=8, tile=(16, 16))
+    out.update(tiff_more_cases(grey, rgb, big))
+    out.update(jpeg_colour_space_cases(rgb))
+    return out
+
+
+def tiff_more_cases(grey, rgb, big) -> dict[str, bytes]:
+    """TIFF with JPEG and CCITT compression, LSB-first fill order, signed
+    samples, and YCbCr, CMYK and CIELab pixels."""
+    import cv2
+    from PIL import Image
+    out = {}
+    # JPEG (7): OpenCV's and PIL's, then strips of OpenCV's JPEGs
+    jpeg = [cv2.IMWRITE_TIFF_COMPRESSION, 7]
+    out["tiff_jpeg_cv2_grey.tif"] = _cv(".tif", grey, jpeg)
+    out["tiff_jpeg_cv2_colour.tif"] = _cv(".tif", rgb[..., ::-1], jpeg)
+    out["tiff_jpeg_cv2_grey_strips.tif"] = _cv(".tif", big, jpeg + [
+        cv2.IMWRITE_TIFF_ROWSPERSTRIP, 16])
+    out["tiff_jpeg_pil_grey.tif"] = _pil(grey, "TIFF", compression="jpeg")
+    out["tiff_jpeg_pil_rgb.tif"] = _pil(rgb, "TIFF", compression="jpeg")
+    ycc = Image.fromarray(rgb).convert("YCbCr")
+    out["tiff_jpeg_pil_ycbcr.tif"] = _pil(ycc, "TIFF", compression="jpeg")
+    out["tiff_jpeg_pil_ycbcr_strips.tif"] = _pil(ycc, "TIFF",
+                                                 compression="jpeg",
+                                                 strip_size=1024)
+    for sampling, rps in (("420", 16), ("422", 8), ("440", 16),
+                          ("411", 8)):
+        out[f"tiff_jpeg_ycbcr_{sampling}_strips.tif"] = tiff_jpeg(
+            rgb, rps, sampling)
+    out["tiff_jpeg_ycbcr_420_no_tag.tif"] = tiff_jpeg(
+        rgb, 16, "420", subsampling_tag=False)
+    out["tiff_jpeg_ycbcr_420_tiles.tif"] = tiff_jpeg(rgb, 0, "420",
+                                                     tile=(16, 16))
+    out["tiff_jpeg_grey_tiles.tif"] = tiff_jpeg(grey, 0, tile=(16, 32))
+    out["tiff_jpeg_pil_cmyk.tif"] = _pil(
+        Image.fromarray(rgb).convert("CMYK"), "TIFF", compression="jpeg")
+    # CCITT RLE (2), Group 3 (3) 1-D and 2-D, plain and byte-aligned EOLs,
+    # Group 4 (4); each min-is-black and min-is-white
+    bilevel = Image.fromarray(grey > 128)
+    ccitt = {"rle": ("tiff_ccitt", {}), "g3_1d": ("group3", {}),
+             "g3_1d_aligned": ("group3", {292: 4}),
+             "g3_2d": ("group3", {292: 1}),
+             "g3_2d_aligned": ("group3", {292: 5}), "g4": ("group4", {})}
+    for name, (comp, info) in ccitt.items():
+        for photometric, kind in ((1, "black"), (0, "white")):
+            out[f"tiff_ccitt_{name}_min_is_{kind}.tif"] = _pil(
+                bilevel, "TIFF", compression=comp,
+                tiffinfo={**info, 262: photometric})
+    wide = Image.fromarray(runs_image(6, 2700, 9))
+    out["tiff_ccitt_g4_wide_strips.tif"] = _pil(wide, "TIFF",
+                                                compression="group4",
+                                                strip_size=338 * 2)
+    out["tiff_ccitt_g3_2d_wide.tif"] = _pil(wide, "TIFF",
+                                            compression="group3",
+                                            tiffinfo={292: 1})
+    # LSB-first fill order (266 = 2), on each compression PIL writes it
+    # with; PIL's own uncompressed writer leaves the bits as they were
+    fo2 = {266: 2}
+    for name, comp in (("none", None), ("lzw", "tiff_lzw"),
+                       ("adobe_deflate", "tiff_adobe_deflate"),
+                       ("packbits", "packbits"), ("rle", "tiff_ccitt"),
+                       ("g3", "group3"), ("g4", "group4")):
+        kw = {} if comp is None else {"compression": comp}
+        out[f"tiff_fill_order_2_{name}_bilevel.tif"] = _pil(
+            bilevel, "TIFF", tiffinfo=fo2, **kw)
+    out["tiff_fill_order_2_lzw_grey.tif"] = _pil(
+        grey, "TIFF", compression="tiff_lzw", tiffinfo=fo2)
+    out["tiff_fill_order_2_jpeg_grey.tif"] = _pil(
+        grey, "TIFF", compression="jpeg", tiffinfo=fo2)
+    # signed samples, which libtiff's RGBA reader takes as unsigned
+    out["tiff_cv2_signed8.tif"] = _cv(".tif", (grey.astype(np.int16) - 128)
+                                      .astype(np.int8))
+    out["tiff_cv2_signed16.tif"] = _cv(".tif", grey.astype(np.int16) * 200
+                                       - 25000)
+    # YCbCr (6), CMYK (5) and CIELab (8) without compression
+    out["tiff_ycbcr_pil.tif"] = _pil(ycc, "TIFF")
+    ycc_px = np.asarray(ycc)
+    for hs, vs in ((2, 2), (2, 1), (4, 2), (1, 2)):
+        out[f"tiff_ycbcr_{hs}{vs}.tif"] = tiff(ycc_px, photometric=6,
+                                              subsampling=(hs, vs),
+                                              rows_per_strip=8)
+    out["tiff_ycbcr_22_lzw_no_tag.tif"] = tiff(
+        ycc_px, photometric=6, compression=5, rows_per_strip=16,
+        subsampling=(2, 2), subsampling_tag=False)
+    # studio range and other coefficients, as exact binary fractions
+    out["tiff_ycbcr_reference_black_white.tif"] = tiff(
+        ycc_px, photometric=6, extra_tags=[
+            (529, 5, [(1, 4), (5, 8), (1, 8)]),
+            (532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                      (240, 1)])], subsampling=(1, 1))
+    out["tiff_cmyk_pil.tif"] = _pil(Image.fromarray(rgb).convert("CMYK"),
+                                    "TIFF")
+    out["tiff_cmyk_pil_lzw.tif"] = _pil(
+        Image.fromarray(rgb).convert("CMYK"), "TIFF", compression="tiff_lzw")
+    lab = Image.fromarray(rgb).convert("LAB")
+    out["tiff_cielab_pil.tif"] = _pil(lab, "TIFF")
+    out["tiff_cielab_white_point.tif"] = tiff(
+        np.asarray(lab), photometric=8, extra_tags=[
+            (318, 5, [(5, 16), (21, 64)])])
+    return out
+
+
+def jpeg_colour_space_cases(rgb) -> dict[str, bytes]:
+    """4-component (Adobe CMYK, YCCK) and RGB-coded 3-component JPEG."""
+    from PIL import Image
+    out = {}
+    cmyk = Image.fromarray(rgb).convert("CMYK")
+    base = _pil(cmyk, "JPEG", quality=90)
+    prog = _pil(cmyk, "JPEG", quality=90, progressive=True)
+    out["jpeg_cmyk.jpg"] = base
+    out["jpeg_cmyk_progressive.jpg"] = prog
+    out["jpeg_cmyk_no_adobe.jpg"] = _adobe_transform(base, None)
+    # transform 2: libjpeg takes the same coefficients as YCCK
+    out["jpeg_ycck.jpg"] = _adobe_transform(base, 2)
+    out["jpeg_ycck_progressive.jpg"] = _adobe_transform(prog, 2)
+    out["jpeg_rgb_coded.jpg"] = _pil(rgb, "JPEG", keep_rgb=True, quality=90)
+    out["jpeg_rgb_coded_progressive.jpg"] = _pil(rgb, "JPEG", keep_rgb=True,
+                                                 progressive=True)
+    out["jpeg_rgb_coded_by_ids.jpg"] = _adobe_transform(
+        out["jpeg_rgb_coded.jpg"], None)
     return out
 
 
@@ -726,15 +972,16 @@ def print_cases() -> dict[str, bytes]:
     JPEGs ``base_<name>.jpg``, the baseline twin."""
     import cv2
     out = {}
+    from PIL import Image
     kinds = ["progressive.jpg", "progressive_colour.jpg", "none.tif",
              "deflate.tif", "packbits.tif", "grey16.png", "palette.png",
              "adam7.png", "bmp32.bmp", "rle8.bmp", "exif_o6.png",
-             "exif_o3.tif"]
+             "exif_o3.tif", "jpeg_ycbcr.tif", "cmyk.jpg", "g4.tif"]
     for k, kind in enumerate(kinds):
         x = print_pixels(FORMAT_SUBJECTS[k % 4], k // 4)
         stem = kind.rsplit(".", 1)[0]
         base = _cv(".jpg", x, [cv2.IMWRITE_JPEG_QUALITY, 95])
-        if kind.endswith(".jpg"):
+        if kind in ("progressive.jpg", "progressive_colour.jpg"):
             out[f"base_{stem}.jpg"] = base
         p = cv2.imdecode(np.frombuffer(base, np.uint8), cv2.IMREAD_GRAYSCALE)
         if kind == "progressive.jpg":
@@ -762,6 +1009,19 @@ def print_cases() -> dict[str, bytes]:
         elif kind == "rle8.bmp":
             data = bmp(p, 8, np.repeat(np.arange(256)[:, None], 3, 1),
                        compression=1)
+        elif kind == "jpeg_ycbcr.tif":
+            # the print in three channels, YCbCr 4:2:0 in strips of 64 rows
+            data = tiff_jpeg(np.repeat(x[..., None], 3, 2), 64, "420")
+        elif kind == "cmyk.jpg":
+            # the print as black ink alone, Adobe CMYK
+            zero = Image.fromarray(np.zeros_like(x))
+            data = _pil(Image.merge("CMYK", [zero, zero, zero,
+                                             Image.fromarray(255 - x)]),
+                        "JPEG", quality=90)
+        elif kind == "g4.tif":
+            # the print's pixels through a threshold, CCITT Group 4
+            data = _pil(Image.fromarray(p > 127), "TIFF",
+                        compression="group4")
         elif kind == "exif_o6.png":
             # stored turned a quarter anticlockwise; 6 turns it back
             data = png(np.ascontiguousarray(np.rot90(p, 1)), 8, 0,
@@ -793,9 +1053,36 @@ def cv2_decode(data: bytes):
     return g, (None if c is None else np.ascontiguousarray(c[..., ::-1]))
 
 
+def opencv_messages(data: bytes) -> str:
+    """What OpenCV (libtiff, libjpeg) writes to the standard error while
+    it decodes ``data``, grey and colour."""
+    import os
+    import tempfile
+    with tempfile.TemporaryFile() as f:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(f.fileno(), 2)
+        try:
+            cv2_decode(data)
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        return f.read().decode(errors="replace")
+
+
+# what marks a decode that read past a fault rather than a clean file
+FAULTS = ("TIFF_Error", "Corrupt JPEG", "Premature end")
+
+
 def expected(files: dict[str, bytes]) -> dict:
+    """OpenCV's digests of each file; raises if OpenCV reports an error
+    while it reads one."""
     out = {}
     for name, data in sorted(files.items()):
+        said = opencv_messages(data)
+        if any(f in said for f in FAULTS):
+            raise SystemExit(f"{name}: OpenCV reports an error:\n{said}")
         g, c = cv2_decode(data)
         out[name] = {"gray": digest(g), "rgb": digest(c)}
     return out
