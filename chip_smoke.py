@@ -914,16 +914,15 @@ def golden_phase(dev, build) -> int:
     frr_p, far_p = params(pr["frr"]), params(pr["far"])
     runs, launches = {}, {}
     for cascade in (False, True):
-        for k in build.LAUNCHES:
-            build.LAUNCHES[k] = 0
+        build.reset_launches()
         run = protocol(ds, frr_p, far_p, cascade, peers=100, seed=42,
                        num_points=pr["num_points"])
-        launches[cascade] = dict(build.LAUNCHES)
+        launches[cascade] = build.launches()
         want = (expected_chunks(ds, run["g_pairs"], frr_p, cascade)
                 + expected_chunks(ds, run["i_pairs"], far_p, cascade))
         print(f"    launches {launches[cascade]}; kernel-D chunks expected "
               f"{want}")
-        if launches[cascade] != {**dict.fromkeys(build.LAUNCHES, 0),
+        if launches[cascade] != {**dict.fromkeys(build.KERNELS, 0),
                                  "match": want}:
             fail(f"cascade={cascade}: launch counts {launches[cascade]}, "
                  f"expected {want} kernel-D chunks and nothing else")
@@ -972,19 +971,18 @@ def blob_protocol_phase(dev, run_path, build) -> None:
         ds = load_dataset(tmp, max_per_user=pr["max_per_user"], device=dev)
     counts = [len(m) for m in ds.matrices]
     print(f"  {len(ds.users)} users, valid minutiae per template {counts}")
-    for k in build.LAUNCHES:
-        build.LAUNCHES[k] = 0
+    build.reset_launches()
     mk = lambda gates: MatchParams(ransac_iter=pr["ransac_iter"],
                                    stop_inlier_ratio=pr["stop_inlier_ratio"],
                                    seed=pr["seed"], **gates)
     run = protocol(ds, mk(FRR_GATES), mk(FAR_GATES), pr["cascade"],
                    pr["peers"], pr["seed"], pr["num_points"])
-    print(f"    launches {dict(build.LAUNCHES)}")
+    print(f"    launches {build.launches()}")
     gap = float(run["genuine"].mean() - run["impostor"].mean())
     print(f"    EER {run['eer']:.4f}, genuine - impostor mean {gap:.4f}")
     if len(ds.users) != 8 or len(run["g_pairs"]) != 8:
         fail("blob protocol: expected 8 users with 2 templates each")
-    if build.LAUNCHES["match"] == 0:
+    if build.launches()["match"] == 0:
         fail("blob protocol did not launch kernel D")
     if not (np.isfinite(run["genuine"]).all()
             and np.isfinite(run["impostor"]).all()):
@@ -1107,12 +1105,11 @@ def gabor_phase(dev, build, card, x, run_path, off_run_path) -> dict:
     if not bank_err <= GABOR_BANK_ATOL:
         fail(f"Gabor bank on the card off the CPU port by {bank_err:.3g}")
 
-    for k in build.LAUNCHES:
-        build.LAUNCHES[k] = 0
+    build.reset_launches()
     torch.cuda.synchronize()
     res, ms = run_path(x)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+    launches = build.launches()
     print(f"  launches in one run with Gabor on: {launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
                 "binarize": 1, "morph": 1}
@@ -1180,12 +1177,11 @@ def large_frame_file_phase(dev, build) -> None:
             encode_jpeg(protocol_print(14, 0.0, 2048, 1024)))
         try:
             os.chdir(root)
-            for k in build.LAUNCHES:
-                build.LAUNCHES[k] = 0
+            build.reset_launches()
             stats, secs = wall_s(lambda: prun.run_preprocessing(
                 root / "sorted", root / "processed", batch_size=4,
                 debug=False))
-            launches = dict(build.LAUNCHES)
+            launches = build.launches()
         finally:
             os.chdir(cwd)
         skel = [int((read_image_grayscale(
@@ -1326,11 +1322,10 @@ def file_pipeline_phase(dev, build, card) -> dict:
 
     def counted(name, fn):
         def run(*args, **kwargs):
-            for k in build.LAUNCHES:
-                build.LAUNCHES[k] = 0
+            build.reset_launches()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            launches[name] = dict(build.LAUNCHES)
+            launches[name] = build.launches()
             return out
         return run
 
@@ -1625,15 +1620,14 @@ def formats_phase(dev, build, card) -> dict:
             placed[kind] = (stem, ext, twin_ext)
         runs = {}
         for tree, path in trees.items():
-            for k in build.LAUNCHES:
-                build.LAUNCHES[k] = 0
+            build.reset_launches()
             os.chdir(path)
             try:
                 res, t_all = wall_s(lambda: pipeline.run_all(
                     str(path), skip_ssl=True, demo_matching=False))
             finally:
                 os.chdir(cwd)
-            runs[tree] = dict(res=res, t=t_all, launches=dict(build.LAUNCHES))
+            runs[tree] = dict(res=res, t=t_all, launches=build.launches())
         fmt, twn = runs["formats"]["res"], runs["twins"]["res"]
         n_files = len(files) - 1                    # all but the corrupt TIFF
         print(f"  run_all over the formats tree {runs['formats']['t']:.2f} s, "
@@ -1770,13 +1764,12 @@ def gallery_phase(dev, build, card, mesh) -> dict:
     def sweep(name, gal, params, cascade, anchors=True):
         """all_pairs_unique on ``gal``, counted, timed and checked; the
         screen's promote bits are taken after the timed call."""
-        for key in build.LAUNCHES:
-            build.LAUNCHES[key] = 0
+        build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         scores, secs = wall_s(lambda: G.all_pairs_unique(
             gal, mesh, params, chunk=GALLERY_CHUNK, cascade=cascade,
             screen_iters=SCREEN_ITERS, anchors=anchors))
-        launches = dict(build.LAUNCHES)
+        launches = build.launches()
         peak = torch.cuda.max_memory_allocated()
         promoted = promoted_slots(gal, params, anchors) if cascade else None
         want = (tiles + chunks(int(promoted.sum())) if cascade
@@ -1788,7 +1781,7 @@ def gallery_phase(dev, build, card, mesh) -> dict:
               f"{share}kernel D launches {launches['match']} (expected "
               f"{want}); peak device memory {gib(peak):.3f} GiB; genuine "
               f"mean {g_mean:.4f}, impostor mean {i_mean:.6f}")
-        if launches != {**dict.fromkeys(build.LAUNCHES, 0), "match": want}:
+        if launches != {**dict.fromkeys(build.KERNELS, 0), "match": want}:
             fail(f"gallery {name}: launch counts {launches}, expected {want} "
                  "kernel-D calls and nothing else")
         if scores.shape != (len(pairs),) or not np.isfinite(scores).all():
@@ -1914,22 +1907,20 @@ def gallery_phase(dev, build, card, mesh) -> dict:
     G.identify(probe, gp, mesh, p, chunk=IDENT_CHUNK)
     reps = 3
     torch.cuda.reset_peak_memory_stats()
-    for key in build.LAUNCHES:
-        build.LAUNCHES[key] = 0
+    build.reset_launches()
     _, secs = wall_s(lambda: [G.identify(probe, gp, mesh, p, chunk=IDENT_CHUNK)
                               for _ in range(reps)])
     one_ms = secs / reps * 1e3
-    one_launches = build.LAUNCHES["match"] // reps
+    one_launches = build.launches()["match"] // reps
     one_peak = torch.cuda.max_memory_allocated()
     probes = G.take_templates(gd, torch.arange(IDENT_PROBES, device=dev))
     batch = G.identify_batch(probes, gp, mesh, p, chunk=IDENT_CHUNK)
     torch.cuda.reset_peak_memory_stats()
-    for key in build.LAUNCHES:
-        build.LAUNCHES[key] = 0
+    build.reset_launches()
     _, secs = wall_s(lambda: G.identify_batch(probes, gp, mesh, p,
                                               chunk=IDENT_CHUNK))
     batch_ms = secs / IDENT_PROBES * 1e3
-    batch_launches = build.LAUNCHES["match"]
+    batch_launches = build.launches()["match"]
     batch_peak = torch.cuda.max_memory_allocated()
     per_call = max(1, G._PAIR_BATCH // IDENT_CHUNK)
     want_one = n_gp // IDENT_CHUNK
@@ -2188,8 +2179,7 @@ def ssl_run_all_phase(dev, build, card) -> dict:
         cfg = front.classifier_config(root)
         ckpt = front.write_checkpoint(cfg, seed=42)
         t_setup = time.perf_counter() - t0
-        for k in build.LAUNCHES:
-            build.LAUNCHES[k] = 0
+        build.reset_launches()
         os.chdir(root)
         try:
             res, t_all = wall_s(lambda: pipeline.run_all(
@@ -2197,7 +2187,7 @@ def ssl_run_all_phase(dev, build, card) -> dict:
                 demo_matching=False))
         finally:
             os.chdir(cwd)
-        launches = dict(build.LAUNCHES)
+        launches = build.launches()
         ssl, mat = res["ssl"], res["matching"]
         save = root / "save_models"
         card_labels = read_csv_labels(save / "id_clusters.csv")
@@ -2753,8 +2743,7 @@ def train_run_all_phase(dev, build, card) -> dict:
         files = polyu_set.write_raw(data, RAW_SUBJECTS, RAW_NIST)
         cfg, ccfg = _ssl_cfg(root, epochs=1)
         batch = int(ccfg.ssl.dataset.get("batch_size"))
-        for k in build.LAUNCHES:
-            build.LAUNCHES[k] = 0
+        build.reset_launches()
         os.chdir(root)
         try:
             res, t_all = wall_s(lambda: pipeline.run_all(
@@ -2762,7 +2751,7 @@ def train_run_all_phase(dev, build, card) -> dict:
                 demo_matching=False))
         finally:
             os.chdir(cwd)
-        launches = dict(build.LAUNCHES)
+        launches = build.launches()
         final = root / "save_models" / "ssl_model_final.msgpack"
         payload = load_msgpack(final) if final.is_file() else {}
         ssl, mat = res["ssl"], res["matching"]
@@ -2938,13 +2927,12 @@ def multi_gpu_rank() -> dict:
     n_local = gp.valid.shape[0] // w
     chunk = IDENT_CHUNK if n_local % IDENT_CHUNK == 0 else n_local
     probes = G.take_templates(g40, np.arange(IDENT_PROBES))
-    for key in build.LAUNCHES:
-        build.LAUNCHES[key] = 0
+    build.reset_launches()
     scores, sweep_s = wall_s(lambda: sweep(g40))
     shard = G.shard_gallery(gp, mesh)
     batch, ident_s = wall_s(lambda: G.identify_batch(probes, shard, mesh, p,
                                                      chunk=chunk))
-    launches = dict(build.LAUNCHES)
+    launches = build.launches()
     ssl = _multi_ssl(create_mesh(axis_name="data", device="cuda"),
                      mesh.device)
     # the collectives at the sizes the paths give them: identify_batch's
@@ -3071,7 +3059,7 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
             timeout=timeout))
         d = sum(r["launches"]["match"] for r in ranks)
         other = {k: sum(r["launches"][k] for r in ranks)
-                 for k in build.LAUNCHES if k != "match"}
+                 for k in build.KERNELS if k != "match"}
         r0 = ranks[0]
         print(f"  {n} rank(s) over {r0['backend']} on "
               f"{', '.join(r['device'] for r in ranks)}: launch "
@@ -3498,14 +3486,13 @@ def main() -> None:
 
     # 4. main path, counted and timed
     print("main path:")
-    for k in build.LAUNCHES:
-        build.LAUNCHES[k] = 0
+    build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, ms = run_path(x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    launches = build.launches()
     print(f"  launches in one run: {launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
                 "binarize": 1, "morph": 1}

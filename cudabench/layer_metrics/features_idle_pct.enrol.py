@@ -1,0 +1,9 @@
+"""Device idle time while the host was inside the program's
+``features.extract`` and ``features.postprocess`` spans, % of the profiled
+steps' window."""
+
+from cudabench.layer_metrics._program import idle_pct
+
+
+def read(tr):
+    return idle_pct(tr, "features")

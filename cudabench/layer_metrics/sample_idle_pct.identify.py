@@ -1,0 +1,9 @@
+"""Device idle time while the host was inside the matcher's
+``match.stats`` and ``match.sample`` spans, % of the profiled probes'
+window."""
+
+from cudabench.layer_metrics._program import idle_pct
+
+
+def read(tr):
+    return idle_pct(tr, "match.stats", "match.sample")

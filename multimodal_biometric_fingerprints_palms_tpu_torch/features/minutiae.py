@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import traced
+
 
 class MinutiaeSet(NamedTuple):
     """Fixed-K minutiae: xy, type, orientation, quality, coherence,
@@ -85,6 +87,7 @@ def crossing_number(skel: torch.Tensor) -> torch.Tensor:
     return cn // 2
 
 
+@traced("features.extract")
 def extract_minutiae(skel: torch.Tensor, k: int = 64) -> MinutiaeSet:
     """Up to ``k`` minutiae per image from (..., H, W) skeletons:
     skeleton pixels with CN 1 (ending) or 3 (bifurcation), border excluded,

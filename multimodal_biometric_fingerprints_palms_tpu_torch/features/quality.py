@@ -16,6 +16,7 @@ import torch
 
 from ..ops.filters import blur_mean
 from ..ops.orientation import compute_orientation_field
+from ..utils.profiling import span, traced
 from .minutiae import MinutiaeSet
 
 
@@ -160,6 +161,7 @@ def _sort_and_cap(ms: MinutiaeSet, max_minutiae: int) -> MinutiaeSet:
     )
 
 
+@traced("features.postprocess")
 def postprocess_minutiae(ms: MinutiaeSet, skel: torch.Tensor,
                          quality_window: int = 25,
                          quality_threshold: float = 0.15,
@@ -171,25 +173,36 @@ def postprocess_minutiae(ms: MinutiaeSet, skel: torch.Tensor,
                          dedup_radius: float = 20.0,
                          dedup_angle: float = math.radians(30.0)) -> MinutiaeSet:
     """Quality scoring + NMS + dedup over (..., H, W) skeletons with
-    matching (..., K) minutiae sets. Defaults are the reference's."""
+    matching (..., K) minutiae sets. Defaults are the reference's.
+
+    Spans, under ``features.postprocess``: ``features.enrich`` (the
+    density map, the skeleton's orientation field and the quality
+    scoring), ``features.nms``, ``features.redundant`` and
+    ``features.sort_cap``."""
     lead = skel.shape[:-2]
     h, w = skel.shape[-2:]
     flat =MinutiaeSet(*(a.reshape((-1,) + a.shape[len(lead):]) for a in ms))
     sk = skel.reshape(-1, h, w).to(torch.float32)
 
-    density = blur_mean(sk, quality_window)
-    density = density / (torch.amax(density, dim=(-2, -1), keepdim=True) + 1e-6)
+    with span("features.enrich"):
+        density = blur_mean(sk, quality_window)
+        density = density / (torch.amax(density, dim=(-2, -1), keepdim=True)
+                             + 1e-6)
 
-    # orientation/coherence re-estimated on the skeleton image itself
-    field = compute_orientation_field(sk)
-    coherence = torch.clamp(field.reliability, 0.0, 1.0)
+        # orientation/coherence re-estimated on the skeleton image itself
+        field = compute_orientation_field(sk)
+        coherence = torch.clamp(field.reliability, 0.0, 1.0)
 
-    flat = _enrich(flat, sk, density, field.orientation, coherence,
-                   quality_threshold, coherence_threshold, margin, patch_radius)
-    keep = _nms_adaptive(flat, density, min_distance, h, w)
-    keep = _remove_redundant_oriented(flat, keep, density, dedup_radius,
-                                      dedup_angle, h, w)
-    flat = flat._replace(valid=keep, quality=torch.where(
-        keep, flat.quality, torch.zeros_like(flat.quality)))
-    out = _sort_and_cap(flat, max_minutiae)
+        flat = _enrich(flat, sk, density, field.orientation, coherence,
+                       quality_threshold, coherence_threshold, margin,
+                       patch_radius)
+    with span("features.nms"):
+        keep = _nms_adaptive(flat, density, min_distance, h, w)
+    with span("features.redundant"):
+        keep = _remove_redundant_oriented(flat, keep, density, dedup_radius,
+                                          dedup_angle, h, w)
+    with span("features.sort_cap"):
+        flat = flat._replace(valid=keep, quality=torch.where(
+            keep, flat.quality, torch.zeros_like(flat.quality)))
+        out = _sort_and_cap(flat, max_minutiae)
     return MinutiaeSet(*(a.reshape(lead + a.shape[1:]) for a in out))

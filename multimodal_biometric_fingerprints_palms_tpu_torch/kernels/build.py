@@ -9,8 +9,9 @@ a hash of the sources, their headers and the flags, so an edited source or
 header rebuilds and an unchanged one loads at once. Nothing is compiled or
 loaded at import time.
 
-``LAUNCHES`` counts wrapper launches per kernel; each wrapper adds one where
-it launches its kernel and nowhere else.
+Each wrapper counts its launches in ``utils.profiling``'s registry as
+``kernel.<name>`` (``KERNELS``), where it launches its kernel and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils.profiling import COUNTERS, reset
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -36,8 +39,18 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"clahe": 0, "cc": 0, "thin": 0, "match": 0, "nlm": 0,
-            "binarize": 0, "morph": 0}
+KERNELS = ("clahe", "cc", "thin", "match", "nlm", "binarize", "morph")
+for _kernel in KERNELS:
+    COUNTERS.setdefault(f"kernel.{_kernel}", 0)
+
+
+def launches() -> dict:
+    """Each kernel's launches so far, by kernel name."""
+    return {k: COUNTERS[f"kernel.{k}"] for k in KERNELS}
+
+
+def reset_launches() -> None:
+    reset("kernel.")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

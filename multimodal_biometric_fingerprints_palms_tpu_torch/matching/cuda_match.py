@@ -35,6 +35,7 @@ import torch
 
 from ..features.minutiae import MinutiaeSet
 from ..kernels import build as _build
+from ..utils.profiling import count, span, traced
 from .ransac import (MatchParams, MatchResult, _cos_sin, _finish_match, _fma,
                      _NN_Q, _NN_SAT, _pair_stats, _take, anchor_promote,
                      sample_hypotheses)
@@ -161,7 +162,7 @@ def hypothesis_scores_cuda(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
         int(bool(p.use_type)), int(p.min_inliers),
         _build.current_stream(theta))
     _build.check(rc, "mbfp_hypothesis_scores")
-    _build.LAUNCHES["match"] += 1
+    count("kernel.match")
     return scores, counts
 
 
@@ -174,17 +175,25 @@ def hypothesis_scores(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
                                   possible, p)
 
 
+@traced("match.batch")
 def match_pairs_batch(a: MinutiaeSet, b: MinutiaeSet,
                       p: MatchParams = MatchParams()) -> MatchResult:
     """Batched 1:1 matching of (P, K) MinutiaeSets, the full pass:
     sampling, hypothesis scoring (kernel D on a CUDA device), then the
-    finish (selection, Kabsch refine, cross-check)."""
-    wa, wb, na, nb, possible, reject = _pair_stats(a, b)
-    theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
-    scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
-                                       possible, p)
-    return _finish_match(a, b, wa, wb, possible, na, nb, reject,
-                         scores, counts, theta, t, p)
+    finish (selection, Kabsch refine, cross-check). Spans, under
+    ``match.batch``: ``match.stats``, ``match.sample``, ``match.score``
+    and ``match.finish``; counts ``match.pairs``."""
+    count("match.pairs", a.valid.shape[0])
+    with span("match.stats"):
+        wa, wb, na, nb, possible, reject = _pair_stats(a, b)
+    with span("match.sample"):
+        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
+    with span("match.score"):
+        scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
+                                           possible, p)
+    with span("match.finish"):
+        return _finish_match(a, b, wa, wb, possible, na, nb, reject,
+                             scores, counts, theta, t, p)
 
 
 # The counterpart of the JAX package's ``match_pairs_batch_pallas``.
@@ -200,6 +209,7 @@ def match_minutiae_pair(a: MinutiaeSet, b: MinutiaeSet,
     return MatchResult(*(x[0] for x in r))
 
 
+@traced("match.batch")
 def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
                               p: MatchParams) -> torch.Tensor:
     """Cascade screen, (P,) bool: promote a pair when any hypothesis scores
@@ -209,11 +219,15 @@ def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
     At equal hypothesis budget every pair the full pass scores above 0 is
     promoted. With ``p.full_iters`` at the full budget the screen's
     hypotheses are a prefix of the full pass's, so a miss can only be a
-    pair whose good transforms all lie in the tail."""
-    wa, wb, _, _, possible, reject = _pair_stats(a, b)
-    theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
-    scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
-                                       possible, p)
+    pair whose good transforms all lie in the tail. Spans as
+    ``match_pairs_batch``'s, without ``match.finish``."""
+    with span("match.stats"):
+        wa, wb, _, _, possible, reject = _pair_stats(a, b)
+    with span("match.sample"):
+        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
+    with span("match.score"):
+        scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
+                                           possible, p)
     hit = ((scores.amax(dim=-1) > 0.0)
            | (counts.amax(dim=-1) >= p.min_inliers))
     return hit & ~reject

@@ -29,6 +29,7 @@ import torch
 
 from ..features.minutiae import MinutiaeSet
 from ..utils import threefry
+from ..utils.profiling import traced
 
 _BIG = 1e9
 
@@ -275,6 +276,7 @@ def _pair_stats(a: MinutiaeSet, b: MinutiaeSet):
     return wa, wb, na, nb, possible, reject
 
 
+@traced("match.anchor")
 def anchor_promote(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
                    n_anchors: int = 8) -> torch.Tensor:
     """(P,) deterministic recall-only anchors for the cascade screen.

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 from .cuda_cc import cc_filter
 from .cuda_morph import open_erode_reconstruct
 from .filters import box_filter
@@ -161,7 +162,7 @@ def _front_cuda(img_eq: torch.Tensor, win: int, k: float, otsu: bool,
         float(np.float32(1.0 / win)), float(k), int(otsu),
         _build.current_stream(flat))
     _build.check(rc, "mbfp_binarize_front")
-    _build.LAUNCHES["binarize"] += 1
+    count("kernel.binarize")
     return out.reshape(img_eq.shape)
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 
 BACKGROUND = 1 << 30
 MODES = {"remove_small": 0, "fill_holes": 1, "clean": 2, "largest": 3,
@@ -151,7 +152,7 @@ def cc_label_cuda(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
         m.data_ptr(), 0, label.data_ptr(), b, h, w, connectivity,
         _build.current_stream(mask))
     _build.check(rc, "mbfp_cc_label")
-    _build.LAUNCHES["cc"] += 1
+    count("kernel.cc")
     return label
 
 
@@ -179,7 +180,7 @@ def cc_filter_cuda(mask: torch.Tensor, mode: str, connectivity: int = 2,
         table.data_ptr(), key.data_ptr(), b, h, w, connectivity, MODES[mode],
         int(min_size), int(max_size), _build.current_stream(mask))
     _build.check(rc, "mbfp_cc_filter")
-    _build.LAUNCHES["cc"] += 1
+    count("kernel.cc")
     return out
 
 

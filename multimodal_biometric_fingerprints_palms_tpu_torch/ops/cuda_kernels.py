@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 
 NBINS = 256
 _MAX_TILE_ROWS = 2560    # pass 2 keeps 16 bytes a tile row in shared memory
@@ -191,7 +192,7 @@ def clahe_cuda(x: torch.Tensor, clip_limit: float = 2.5, grid: int = 8,
                         b, h, w, grid, _clip_limit(clip_limit, area),
                         (NBINS - 1.0) / area, _build.current_stream(x))
     _build.check(rc, "mbfp_clahe")
-    _build.LAUNCHES["clahe"] += 1
+    count("kernel.clahe")
     out = out.reshape(lead + (h, w))
     if return_lut:
         return out, lut.reshape(lead + (grid, grid, NBINS))

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 from .cuda_thin import pack_words, unpack_words
 from .morphology import (binary_erode, binary_opening,
                          binary_reconstruction_by_dilation)
@@ -127,7 +128,7 @@ def open_erode_reconstruct_cuda(mask: torch.Tensor) -> torch.Tensor:
         flat.data_ptr(), out.data_ptr(), b, h, w,
         _build.current_stream(mask))
     _build.check(rc, "mbfp_open_erode_reconstruct")
-    _build.LAUNCHES["morph"] += 1
+    count("kernel.morph")
     return out.reshape(mask.shape)
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 
 
 def nlm_denoise_cuda(x: torch.Tensor, h: float = 10.0,
@@ -59,5 +60,5 @@ def nlm_denoise_cuda(x: torch.Tensor, h: float = 10.0,
         int(search_window), inv, int(precision == "bf16"),
         _build.current_stream(x))
     _build.check(rc, "mbfp_nlm")
-    _build.LAUNCHES["nlm"] += 1
+    count("kernel.nlm")
     return out.reshape(x.shape)

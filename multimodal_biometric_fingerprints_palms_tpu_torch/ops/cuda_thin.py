@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build as _build
+from ..utils.profiling import count
 
 _WORD = 32               # pixels of a row per packed word
 # the kernel's forms: by frame size, one block an image, device memory
@@ -206,7 +207,7 @@ def zs_thin_cuda(mask: torch.Tensor, max_iters: int = 128,
         int(max_iters), int(bool(prune)), _FORMS[form],
         _build.current_stream(mask))
     _build.check(rc, "mbfp_zs_thin")
-    _build.LAUNCHES["thin"] += 1
+    count("kernel.thin")
     return out.reshape(mask.shape)
 
 

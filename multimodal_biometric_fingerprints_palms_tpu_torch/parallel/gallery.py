@@ -45,6 +45,7 @@ import torch
 from ..features.minutiae import MinutiaeSet
 from ..matching.cuda_match import match_pairs_batch, screen_promote_batch
 from ..matching.ransac import MatchParams
+from ..utils.profiling import count, span, traced
 from .collectives import gather_rows
 from .mesh import Mesh, gallery_sharding, replicated
 
@@ -185,10 +186,12 @@ def shard_pairs_scores(gallery: MinutiaeSet, pairs, mesh: Mesh,
                        chunk: int = 2048):
     """Score an explicit (P, 2) template-index pair list, split over the
     mesh's ranks, ``chunk`` pairs a matcher call. Returns (scores (P,),
-    n_inliers (P,)) as numpy arrays."""
+    n_inliers (P,)) as numpy arrays. Counts ``gallery.full_pairs``: the
+    pairs this rank scores."""
     gallery, ia, ib, total = _pairs_local(gallery, pairs, mesh, chunk)
     if total == 0:
         return np.zeros(0, np.float32), np.zeros(0, np.int32)
+    count("gallery.full_pairs", ia.shape[0])
     s, n = _match_indexed(gallery, ia, gallery, ib, params, chunk)
     return (gather_rows(s, mesh)[:total].cpu().numpy(),
             gather_rows(n, mesh)[:total].cpu().numpy())
@@ -220,6 +223,7 @@ def unique_pairs(n: int) -> np.ndarray:
     return np.stack(iu, axis=1).astype(np.int32)
 
 
+@traced("gallery.screen")
 def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
                         params: MatchParams,
                         axis_name: str = "gallery",
@@ -233,21 +237,29 @@ def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
     Returns (block_pairs (NBP, 2), mask (NBP, block*block)) as numpy:
     block pairs (bi <= bj) in ``np.triu_indices`` order, and mask[r, k]
     promotes global pair (bi*block + k//block, bj*block + k%block): the A
-    side repeat-major, the B side tile-minor."""
+    side repeat-major, the B side tile-minor.
+
+    Span ``gallery.screen``, ending after the mask's copy to the host, and
+    one ``gallery.screen_tile`` a tile; counts ``gallery.screen_pairs``:
+    the block x block pairs of each tile this rank scores."""
     gpad = pad_gallery(_whole(gallery, mesh), block)
     nb = gpad.valid.shape[0] // block
     bi, bj = np.triu_indices(nb, k=0)
     bp = np.stack([bi, bj], axis=1).astype(np.int32)
     k = torch.arange(block * block, device=_device(gpad))
     il, jl = k // block, k % block
-    mask = torch.stack([
-        screen_promote_batch(take_templates(gpad, int(r) * block + il),
-                             take_templates(gpad, int(c) * block + jl),
-                             params, anchors)
-        for r, c in _share(bp, mesh, 1)])
-    return bp, gather_rows(mask, mesh)[:len(bp)].cpu().numpy()
+    rows = []
+    for r, c in _share(bp, mesh, 1):
+        with span("gallery.screen_tile"):
+            count("gallery.screen_pairs", block * block)
+            rows.append(screen_promote_batch(
+                take_templates(gpad, int(r) * block + il),
+                take_templates(gpad, int(c) * block + jl),
+                params, anchors))
+    return bp, gather_rows(torch.stack(rows), mesh)[:len(bp)].cpu().numpy()
 
 
+@traced("gallery.all_pairs")
 def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
                      params: MatchParams = MatchParams(),
                      axis_name: str = "gallery",
@@ -263,13 +275,18 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
     Every rank runs this orchestration on the same gathered results, so
     every rank makes the same calls.
 
-    Returns (P,) float64 final scores aligned with ``unique_pairs(N)``."""
+    Returns (P,) float64 final scores aligned with ``unique_pairs(N)``.
+
+    Spans, under ``gallery.all_pairs``: ``gallery.screen``,
+    ``gallery.promote_index`` (the promoted pairs' indices, on the host)
+    and ``gallery.full_pass``; counts ``gallery.promoted_pairs``."""
     gallery = _whole(gallery, mesh)
     n = gallery.valid.shape[0]
     pairs = unique_pairs(n)
     if not (cascade and params.ransac_iter > screen_iters):
-        s, _ = shard_pairs_scores(gallery, pairs, mesh, params, axis_name,
-                                  chunk)
+        with span("gallery.full_pass"):
+            s, _ = shard_pairs_scores(gallery, pairs, mesh, params, axis_name,
+                                      chunk)
         return s.astype(np.float64)
     screen_p = params._replace(
         ransac_iter=screen_iters,
@@ -278,18 +295,21 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
     block = 64
     bp, mask = shard_blocks_screen(gallery, mesh, screen_p, axis_name,
                                    block, anchors)
-    # promoted (block pair, local k) entries back to unique-pair slots:
-    # k = i_local * block + j_local
-    il, jl = np.divmod(np.arange(block * block), block)
-    gi = bp[:, :1] * block + il[None, :]
-    gj = bp[:, 1:] * block + jl[None, :]
-    keep = mask & (gi < gj) & (gj < n)
-    ii, jj = gi[keep].astype(np.int64), gj[keep].astype(np.int64)
+    with span("gallery.promote_index"):
+        # promoted (block pair, local k) entries back to unique-pair slots:
+        # k = i_local * block + j_local
+        il, jl = np.divmod(np.arange(block * block), block)
+        gi = bp[:, :1] * block + il[None, :]
+        gj = bp[:, 1:] * block + jl[None, :]
+        keep = mask & (gi < gj) & (gj < n)
+        ii, jj = gi[keep].astype(np.int64), gj[keep].astype(np.int64)
+        pos = ii * (2 * n - ii - 1) // 2 + (jj - ii - 1)
+        count("gallery.promoted_pairs", ii.size)
     out = np.zeros(pairs.shape[0], np.float64)
     if ii.size:
-        pos = ii * (2 * n - ii - 1) // 2 + (jj - ii - 1)
-        s1, _ = shard_pairs_scores(gallery, np.stack([ii, jj], axis=1), mesh,
-                                   params, axis_name, chunk)
+        with span("gallery.full_pass"):
+            s1, _ = shard_pairs_scores(gallery, np.stack([ii, jj], axis=1),
+                                       mesh, params, axis_name, chunk)
         out[pos] = s1
     return out
 
@@ -305,6 +325,7 @@ def identify(probe: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
                           mesh, params, axis_name, chunk)[0]
 
 
+@traced("gallery.identify")
 def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
                    params: MatchParams = MatchParams(),
                    axis_name: str = "gallery",

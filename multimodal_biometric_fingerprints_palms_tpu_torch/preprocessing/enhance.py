@@ -28,6 +28,7 @@ from ..ops.gabor import (estimate_ridge_frequency_blockwise,
 from ..ops.histogram import clahe, otsu_threshold, percentile_stretch
 from ..ops.morphology import binary_close_open_packed
 from ..ops.orientation import OrientationField, compute_orientation_field
+from ..utils.profiling import span, traced
 
 
 class EnhancementResult(NamedTuple):
@@ -157,6 +158,7 @@ def gabor_stage(segmented: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask, out, segmented)
 
 
+@traced("enhance")
 def preprocess_fingerprint(img: torch.Tensor,
                            block_size: int = 16,
                            orientation_sigma: float = 3.0,
@@ -171,22 +173,35 @@ def preprocess_fingerprint(img: torch.Tensor,
     after the orientation field, a per-block ridge-frequency estimate
     drives an orientation/frequency-quantized Gabor bank, and binarization
     runs on the enhanced image. Config key: preprocessing.gabor.*.
+
+    Spans, under ``enhance``, one a stage: ``enhance.normalize``,
+    ``.denoise``, ``.segment``, ``.orientation``, ``.gabor`` (when on),
+    ``.binarize``, ``.smooth``, ``.thin``.
     """
     exact_float32()
-    normalized = normalize_image(img)
-    denoised = denoise_image(normalized)
-    segmented, mask = segment_fingerprint(denoised, hull_directions)
-
-    field: OrientationField = compute_orientation_field(
-        segmented, mask=mask, block_size=block_size,
-        smooth_sigma=orientation_sigma,
-        smooth_orientation_sigma=orientation_sigma,
-    )
-    to_binarize = (gabor_stage(segmented, mask, field.orientation,
-                               gabor_params) if gabor else segmented)
-    binary = binarize(to_binarize)
-    binary_smooth = smooth_fingerprint_skeleton(binary.to(torch.float32))
-    skeleton = thinning_and_cleaning(binary_smooth, field.reliability)
+    with span("enhance.normalize"):
+        normalized = normalize_image(img)
+    with span("enhance.denoise"):
+        denoised = denoise_image(normalized)
+    with span("enhance.segment"):
+        segmented, mask = segment_fingerprint(denoised, hull_directions)
+    with span("enhance.orientation"):
+        field: OrientationField = compute_orientation_field(
+            segmented, mask=mask, block_size=block_size,
+            smooth_sigma=orientation_sigma,
+            smooth_orientation_sigma=orientation_sigma,
+        )
+    to_binarize = segmented
+    if gabor:
+        with span("enhance.gabor"):
+            to_binarize = gabor_stage(segmented, mask, field.orientation,
+                                      gabor_params)
+    with span("enhance.binarize"):
+        binary = binarize(to_binarize)
+    with span("enhance.smooth"):
+        binary_smooth = smooth_fingerprint_skeleton(binary.to(torch.float32))
+    with span("enhance.thin"):
+        skeleton = thinning_and_cleaning(binary_smooth, field.reliability)
 
     return EnhancementResult(
         normalized=normalized,

@@ -3,6 +3,7 @@ against OpenCV, its YAML reader against PyYAML, its catalog CSV, id check
 and score reports against the JAX package's (pandas-based) ones."""
 
 import io
+import json
 import struct
 import zlib
 
@@ -465,8 +466,12 @@ def test_padding_helpers_equal_the_jax_package():
 
 def test_device_trace_writes_a_trace(tmp_path):
     from multimodal_biometric_fingerprints_palms_tpu_torch.utils.profiling import (
-        device_trace, stage_timer)
+        count, device_trace, span)
     with device_trace(tmp_path / "trace"):
-        with stage_timer("sum", 4):
+        with span("io.sum"):
+            count("io.sums")
             torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    trace = (tmp_path / "trace" / "trace.json").read_text()
+    assert '"io.sum"' in trace
+    counted = json.loads((tmp_path / "trace" / "counters.json").read_text())
+    assert counted["io.sums"] == 1

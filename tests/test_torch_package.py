@@ -140,8 +140,8 @@ SLICE = {
 # port's model holds its weights) and takes a ``seconds`` dict;
 # ``utils.checkpoint.load_msgpack`` takes no template (``models.
 # load_jax_variables`` holds the tree to the model);
-# ``utils.profiling``'s ``stage_timer`` defaults to its own module's logger
-# and ``device_trace`` writes a torch.profiler trace to its own directory.
+# ``utils.profiling``'s ``device_trace`` writes a torch.profiler trace and
+# the port's counters to the directory it is given.
 # Functions the port keeps in another module: the matcher's batch entry
 # points sit beside kernel D's wrapper.
 PORT_MODULE = {
@@ -527,13 +527,13 @@ def test_minutiae_from_numpy_is_identity():
 
 def test_kernel_sources_exist():
     assert build.SOURCES
-    assert "match.cu" in build.SOURCES and "match" in build.LAUNCHES
+    assert "match.cu" in build.SOURCES and "match" in build.launches()
     assert "mbfp_hypothesis_scores" in build._SIGNATURES
     for source, counter, entry in (
             ("nlm.cu", "nlm", "mbfp_nlm"),
             ("binarize.cu", "binarize", "mbfp_binarize_front"),
             ("morph.cu", "morph", "mbfp_open_erode_reconstruct")):
-        assert source in build.SOURCES and counter in build.LAUNCHES
+        assert source in build.SOURCES and counter in build.launches()
         assert entry in build._SIGNATURES
         assert f'extern "C" int {entry}(' in (
             build.CSRC_DIR / source).read_text()
@@ -654,7 +654,7 @@ def test_kernel_headers_are_part_of_the_library_hash(tmp_path, monkeypatch):
 
 
 def test_launch_counters_untouched_on_cpu():
-    before = dict(build.LAUNCHES)
+    before = build.launches()
     m = torch.from_numpy(np.random.default_rng(0).random((1, 16, 16)) < 0.5)
     cuda_cc.cc_filter(m, "clean", 1, min_size=3, max_size=3)
     cuda_thin.zs_thin(m)
@@ -663,7 +663,7 @@ def test_launch_counters_untouched_on_cpu():
     cuda_binarize.sauvola_binarize(m.float(), win=5)
     cuda_binarize.binarize_fused_split(torch.rand((1, 32, 32)))
     cuda_morph.open_erode_reconstruct(m)
-    assert build.LAUNCHES == before
+    assert build.launches() == before
 
 
 @pytest.mark.parametrize("call", [
@@ -724,14 +724,14 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
     args = _hypothesis_args(device)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_match.hypothesis_scores_cuda(*args, MatchParams())
-    before = dict(build.LAUNCHES)
+    before = build.launches()
     if device == "cpu":
         s, c = cuda_match.hypothesis_scores(*args, MatchParams())
         assert s.shape == c.shape == (2, 8) and c.dtype == torch.int32
     else:
         with pytest.raises(ValueError, match="CUDA tensor"):
             cuda_match.hypothesis_scores(*args, MatchParams())
-    assert build.LAUNCHES == before
+    assert build.launches() == before
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
