@@ -43,6 +43,15 @@ def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def broadcast_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank, in place: every rank passes a tensor
+    of the same shape and dtype on its device (the others' contents are
+    overwritten)."""
+    if is_multi(mesh):
+        dist.broadcast(x, 0, group=mesh.group)
+    return x
+
+
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``x`` summed over the ranks, in place, on every rank."""
     if is_multi(mesh):

@@ -15,7 +15,9 @@ splits it:
 - ``shard_pairs_scores``, ``shard_pairs_screen``: the pair list padded to
   W x per_dev by repeating its last pair and split evenly, the gallery
   replicated; ``shard_blocks_screen`` splits its block pairs the same way;
-- ``identify``, ``identify_batch``: each rank scores its N / W rows.
+- ``identify``, ``identify_batch``: each rank scores its N / W rows;
+- ``ShardedGallery``: the same identification as a service whose gallery
+  stays on the ranks of a ``parallel.launch.RankGroup`` between calls.
 
 Each rank's results are gathered in rank order (``all_gather``) and the
 padding dropped. The mesh, not where the caller built the tensors, decides
@@ -46,7 +48,7 @@ from ..features.minutiae import MinutiaeSet
 from ..matching.cuda_match import match_pairs_batch, screen_promote_batch
 from ..matching.ransac import MatchParams
 from ..utils.profiling import count, span, traced
-from .collectives import gather_rows
+from .collectives import broadcast_rows, gather_rows
 from .mesh import Mesh, gallery_sharding, replicated
 
 # Pairs a matcher call in ``identify_batch``: the JAX package matches all
@@ -354,5 +356,101 @@ def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
     local = torch.cat(cols, dim=1)
     if mesh.size == 1:
         return local
+    return _gather_columns(local, mesh)
+
+
+def _gather_columns(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's (P, N / W) block of scores, side by side in rank
+    order: (P, N) on every rank."""
+    p_num, n_local = local.shape
     blocks = gather_rows(local, mesh).reshape(mesh.size, p_num, n_local)
     return blocks.permute(1, 0, 2).reshape(p_num, mesh.size * n_local)
+
+
+# --- a gallery that stays on the ranks of a RankGroup --------------------------
+
+_SHARD = "gallery.shard"
+
+
+def _header(ms: MinutiaeSet) -> list:
+    """(shape, dtype) of each field: what a follower allocates to receive
+    ``ms`` over the group."""
+    return [(tuple(x.shape), x.dtype) for x in ms]
+
+
+def _broadcast_set(ms: MinutiaeSet | None, header: list, mesh: Mesh
+                   ) -> MinutiaeSet:
+    """Rank 0's MinutiaeSet on every rank's device, field by field over
+    the group (``ms`` is None on the other ranks)."""
+    dev = mesh.device
+    got = [x.to(dev).contiguous() if ms is not None else
+           torch.empty(shape, dtype=dtype, device=dev)
+           for x, (shape, dtype) in zip(ms or [None] * len(header), header)]
+    return MinutiaeSet(*(broadcast_rows(x, mesh) for x in got))
+
+
+def _load_rank(ctx, gallery, header) -> None:
+    """Keep this rank's rows of rank 0's gallery (a ``RankGroup`` call)."""
+    mesh = ctx.mesh
+    whole = _broadcast_set(gallery, header, mesh)
+    shard = shard_gallery(whole, mesh)
+    ctx.state[_SHARD] = (GalleryShard(*(x.clone() for x in shard)),
+                         Mesh((mesh.device,), mesh.axis_name))
+
+
+def _identify_rank(ctx, probes, header, params, chunk):
+    """This rank's share of ``ShardedGallery.identify_batch`` (a
+    ``RankGroup`` call): rank 0's probes over the group, this rank's
+    shard scored alone, the blocks gathered in rank order."""
+    mesh = ctx.mesh
+    shard, own = ctx.state[_SHARD]
+    with span("gallery.broadcast"):
+        probes = _broadcast_set(probes, header, mesh)
+    with span("gallery.local"):
+        local = identify_batch(probes, shard, own, params, chunk=chunk)
+    if mesh.size == 1:
+        return local
+    with span("gallery.gather"):
+        count("gallery.gathered_bytes",
+              local.numel() * local.element_size() * mesh.size)
+        return _gather_columns(local, mesh)
+
+
+class ShardedGallery:
+    """1:N identification against a gallery held on the ranks of a
+    ``parallel.launch.RankGroup`` between calls: rank r keeps rows
+    [r N/W, (r+1) N/W) on its device.
+
+    ``load(gallery)`` sends rank 0's (N, K) gallery to every rank once
+    (a broadcast a field; each rank keeps its rows). ``identify_batch``
+    sends rank 0's (P, K) probes the same way (nothing is pickled), each
+    rank runs ``identify_batch`` on its shard alone, and the (P, N / W)
+    blocks are gathered in rank order: (P, N) scores on rank 0's device,
+    equal to ``identify_batch`` on one device. Spans ``gallery.broadcast``,
+    ``gallery.local`` (the shard's scoring) and ``gallery.gather``;
+    counts ``gallery.gathered_bytes`` (P x N x 4 a call). On a group of one
+    rank nothing is exchanged: a call is ``identify_batch``."""
+
+    def __init__(self, group, params: MatchParams = MatchParams(),
+                 chunk: int = 1024):
+        self.group, self.params, self.chunk = group, params, chunk
+        self.rows = 0
+
+    def load(self, gallery: MinutiaeSet) -> None:
+        """Place the gallery's rows on the ranks; N must be a multiple of
+        the group's size times ``chunk`` (``pad_gallery``)."""
+        n, w = gallery.valid.shape[0], self.group.n
+        per = n // w
+        if n % w or per == 0 or per % min(self.chunk, per):
+            raise ValueError(f"gallery of {n} rows: not {w} shards of whole "
+                             f"chunks of {self.chunk} (pad_gallery)")
+        self.group.call(_load_rank, _header(gallery), data=gallery)
+        self.rows = n
+
+    def identify_batch(self, probes: MinutiaeSet) -> torch.Tensor:
+        """(P, N) scores of the (P, K) probes against the loaded gallery,
+        on rank 0's device."""
+        if not self.rows:
+            raise ValueError("ShardedGallery.identify_batch before load")
+        return self.group.call(_identify_rank, _header(probes), self.params,
+                               self.chunk, data=probes)

@@ -247,3 +247,24 @@ def pipeline_rank(config: str, workdir: str) -> dict:
     res = main(config, train=True, mesh=tmesh.create_mesh(axis_name="data"))
     return {k: res[k] for k in ("embeddings", "labels", "training",
                                 "num_ids")}
+
+
+# --- calls of a group that stays up (``parallel.launch.RankGroup``) ---------------
+
+def failing_call(ctx, data) -> None:
+    """Rank 1 raises; rank 0 waits for it in a collective."""
+    import torch.distributed as dist
+    if ctx.mesh.rank == 1:
+        raise KeyError("rank one's own failure")
+    dist.barrier()
+
+
+def dying_call(ctx, data) -> None:
+    """Rank 1's process exits inside the call; rank 0 waits for it in a
+    collective."""
+    import os
+
+    import torch.distributed as dist
+    if ctx.mesh.rank == 1:
+        os._exit(3)
+    dist.barrier()
