@@ -24,7 +24,9 @@ and drives the port's paths on the card:
   at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
   screen parameters, kernel H (the finish) against its plain twin at the
   identification shape (P=1024, H=300, K=64) with its time, launches and
-  bound, times the full pass at chunks of 512 and 4096 pairs
+  bound, kernel I (the per-pair statistics and the sampling) against its
+  plain twin at P=1024 and 4050, H=300, K=64, bit for bit, with its time,
+  launches and bound, times the full pass at chunks of 512 and 4096 pairs
   and breaks each chunk's host and device time down by step (the device
   time under ``torch.profiler``), runs the FRR/FAR/EER protocol of the reference golden
   (``tests/fixtures/parity_full_golden.json``) on the repository's 136
@@ -844,9 +846,90 @@ def kernel_h_phase(dev) -> dict:
                 match_call_device_ops=len(call_ops), launches=per_call)
 
 
+I_PAIRS = (1024, 4050)   # P of an identify call (nist_sd4) and of the x4 cell's
+
+
+def kernel_i_phase(dev) -> dict:
+    """Kernel I (the per-pair statistics and the sampling) against its plain
+    twin, ``_pair_stats`` then ``sample_hypotheses`` on the card, at H=300,
+    K=64 and P=1,024 (an identification call: one probe against 1,024
+    templates of ``users_gallery``, its mate among them) and P=4,050 (a call
+    of the x4 cell): every output bit-equal (``tools/sample_check.py``'s
+    comparison); then ms a call of the kernel (back to back, and its device
+    time under the profiler) and of the plain twin with their device
+    operations, the ``kernel.sample`` launches of one ``match_pairs_batch``
+    call, and I's bound by ``cudabench/work.py``'s peaks: each input read
+    once (seven (P, K) planes of A and of B, the (H, 2) uniforms), each
+    output written once; its operations (three K-leaf scans and the
+    statistics a pair, a cos, a sin and about 20 more a hypothesis) are far
+    under the bytes' time."""
+    import numpy as np
+    import torch
+    from cudabench import work
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        minutiae_from_numpy)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
+        cuda_match as cm)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
+        MatchParams)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        users_gallery)
+    tool = load_tool("sample_check")
+    _, h, k = IDENT_SHAPE
+    p = MatchParams(ransac_iter=h)
+    out = {}
+    for pn in I_PAIRS:
+        gal = users_gallery(pn, 2, k=k, seed=11)
+        a_np = {f: np.repeat(v[1:2], pn, axis=0) for f, v in gal.items()}
+        b_np = {f: v[0::2] for f, v in gal.items()}
+        a, b = minutiae_from_numpy(a_np, dev), minutiae_from_numpy(b_np, dev)
+        r = tool.compare(a, b, p)
+        print(f"  P={pn} H={h} K={k}: {r}")
+        if not tool.ok(r):
+            fail(f"kernel I differs from its plain twin at P={pn}")
+        ms = time_ms(lambda: cm.sample_pairs_cuda(a, b, p), 50)
+        plain_ms = time_ms(lambda: tool.plain(a, b, p), 5)
+        calls = 20
+        ops = profile_ops(lambda: [cm.sample_pairs_cuda(a, b, p)
+                                   for _ in range(calls)])
+        dev_ms = device_ms(ops) / max(len(ops), 1)
+        plain_ops = profile_ops(lambda: tool.plain(a, b, p))
+        before = build.launches()["sample"]
+        cm.match_pairs_batch(a, b, p)
+        torch.cuda.synchronize()
+        per_call = build.launches()["sample"] - before
+        nbytes = (pn * (2 * k * (8 + 4 + 4 * 4 + 1) + 2 * k * 4 + 3 * 4 + 1
+                        + h * (4 + 8 + 4)) + h * 8)
+        ops_n = pn * (3 * k + 2 * k * 20) + pn * h * 60.0
+        b_s = work.least_seconds(nbytes, ops_n)
+        b_ms, b_by = b_s * 1e3, ("bytes" if nbytes / work.PEAK_BYTES_S
+                                 >= ops_n / work.PEAK_OPS_S else "operations")
+        print(f"  P={pn}: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+              f"device time ({len(ops)} device ops in {calls} calls: "
+              f"{top_ops(ops, 2)}); plain {plain_ms:.4f} ms "
+              f"({len(plain_ops)} device ops: {top_ops(plain_ops, 3)}); "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops_n:.4g} "
+              f"operations), {b_ms / dev_ms if dev_ms else 0.0:.1%} of it "
+              f"by device time; "
+              f"kernel.sample launches of one match_pairs_batch call "
+              f"{per_call}")
+        if per_call != 1:
+            fail("kernel I: not one launch a match_pairs_batch call")
+        if dev_ms and dev_ms < b_ms:
+            fail("kernel I timed under its bound")
+        out[pn] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       device_ops_per_call=len(ops) / calls,
+                       plain_device_ops=len(plain_ops), launches=per_call)
+    first = out[I_PAIRS[0]]
+    return dict(first, err=0.0, by_pairs=out)
+
+
 def chunk_profile(ds, pairs, reps: int = 5) -> None:
-    """Where one chunk's time goes. For the full pass's steps (sampling with
-    the per-pair stats, kernel D's wrapper call, the finish), the
+    """Where one chunk's time goes. For the full pass's steps (the per-pair
+    stats and the sampling, kernel I; kernel D's wrapper call; the finish,
+    kernel H), the
     whole pass and the cascade screen, on the same (P, K) templates:
 
     - host ms: the host clock around one call, synchronized before and
@@ -860,7 +943,7 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams, _pair_stats, sample_hypotheses)
+        MatchParams)
     a, b = gather_pairs(ds, pairs)
     p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
     screen_p = p._replace(ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
@@ -868,22 +951,19 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
     st = {}
 
     def sample():
-        st["stats"] = _pair_stats(a, b)
-        wa, wb = st["stats"][:2]
-        st["hyp"] = sample_hypotheses(a, b, wa, wb, p)
+        st["s"] = cm.sample_pairs_cuda(a, b, p)
 
     def score():
-        wa, wb, _, _, possible, _ = st["stats"]
-        st["scores"] = cm.hypothesis_scores_cuda(a, b, wa, wb, *st["hyp"],
-                                                 possible, p)
+        wa, wb, _, _, possible, _, theta, t, cand = st["s"]
+        st["scores"] = cm.hypothesis_scores_cuda(a, b, wa, wb, theta, t,
+                                                 cand, possible, p)
 
     def finish():
-        wa, wb, na, nb, possible, reject = st["stats"]
-        theta, t, _ = st["hyp"]
+        wa, wb, na, nb, possible, reject, theta, t, _ = st["s"]
         cm.finish_match_cuda(a, b, wa, wb, possible, na, nb, reject,
                              *st["scores"], theta, t, p)
 
-    steps = {"sample": sample, "kernel D": score, "kernel H": finish,
+    steps = {"kernel I": sample, "kernel D": score, "kernel H": finish,
              "whole pass": lambda: cm.match_pairs_batch(a, b, p),
              "screen": lambda: cm.screen_promote_batch(a, b, screen_p)}
     host, device, whole = {}, {}, []
@@ -895,7 +975,7 @@ def chunk_profile(ds, pairs, reps: int = 5) -> None:
         if name == "whole pass":
             whole = ops
     n = len(pairs)
-    part = ("sample", "kernel D", "kernel H")
+    part = ("kernel I", "kernel D", "kernel H")
     print(f"  chunk {n}, host ms per call, synchronized: " + ", ".join(
         f"{k} {host[k]:.3f}" for k in steps)
         + f"; sum of the three steps {sum(host[k] for k in part):.3f}")
@@ -964,7 +1044,7 @@ def check_golden(run: dict, golden: dict, name: str) -> None:
 def expected_chunks(ds, pairs, params, cascade: bool) -> tuple[int, int]:
     """Kernel-D and kernel-H launches ``match_pair_indices`` makes for
     ``pairs``: D once a screen chunk and once a full-pass chunk of the
-    promoted pairs, H once a full-pass chunk."""
+    promoted pairs, H once a full-pass chunk. Kernel I launches as D does."""
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
         screen_pair_indices)
     chunks = lambda n: -(-n // CHUNK)
@@ -1009,7 +1089,7 @@ def golden_phase(dev, build) -> int:
         (dg, hg), (di, hi) = (expected_chunks(ds, run["g_pairs"], frr_p, cascade),
                               expected_chunks(ds, run["i_pairs"], far_p, cascade))
         want = {**dict.fromkeys(build.KERNELS, 0), "match": dg + di,
-                "finish": hg + hi}
+                "finish": hg + hi, "sample": dg + di}
         print(f"    launches {launches[cascade]}; expected {want}")
         if launches[cascade] != want:
             fail(f"cascade={cascade}: launch counts {launches[cascade]}, "
@@ -1108,6 +1188,8 @@ def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
     d = kernel_d_phase(gds, d_pairs, many)
     print("kernel H (the finish):")
     d["h"] = kernel_h_phase(dev)
+    print("kernel I (the per-pair statistics and the sampling):")
+    d["i"] = kernel_i_phase(dev)
 
     # full-pass rate at chunk 512 and 4096 (one chunk each, synchronized),
     # and where each chunk's time goes
@@ -1202,7 +1284,7 @@ def gabor_phase(dev, build, card, x, run_path, off_run_path) -> dict:
     launches = build.launches()
     print(f"  launches in one run with Gabor on: {launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
     if launches != expected:
         fail(f"Gabor path launch counts {launches}, expected {expected}")
     iters = 3
@@ -1282,7 +1364,7 @@ def large_frame_file_phase(dev, build) -> None:
           f"{stats['reader']}); launches {launches}; skeleton px per image "
           f"{skel}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
     if stats["num_images"] != 4 or tuple(stats["canonical_shape"]) != (
             2048, 1024):
         fail("large-frame run: images or canonical shape")
@@ -1872,9 +1954,10 @@ def gallery_phase(dev, build, card, mesh) -> dict:
               f"{want}); peak device memory {gib(peak):.3f} GiB; genuine "
               f"mean {g_mean:.4f}, impostor mean {i_mean:.6f}")
         if launches != {**dict.fromkeys(build.KERNELS, 0), "match": want,
-                        "finish": full}:
+                        "finish": full, "sample": want}:
             fail(f"gallery {name}: launch counts {launches}, expected {want} "
-                 f"kernel-D calls, {full} kernel-H calls and nothing else")
+                 f"kernel-D and kernel-I calls, {full} kernel-H calls and "
+                 f"nothing else")
         if scores.shape != (len(pairs),) or not np.isfinite(scores).all():
             fail(f"gallery {name}: scores' shape or values")
         if cascade and (scores[~promoted] != 0).any():
@@ -3150,8 +3233,10 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
             timeout=timeout))
         d = sum(r["launches"]["match"] for r in ranks)
         h = sum(r["launches"]["finish"] for r in ranks)
+        i_launches = sum(r["launches"]["sample"] for r in ranks)
         other = {k: sum(r["launches"][k] for r in ranks)
-                 for k in build.KERNELS if k not in ("match", "finish")}
+                 for k in build.KERNELS if k not in ("match", "finish",
+                                                     "sample")}
         r0 = ranks[0]
         print(f"  {n} rank(s) over {r0['backend']} on "
               f"{', '.join(r['device'] for r in ranks)}: launch "
@@ -3166,9 +3251,9 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
               f"all-reduce of the SSL gradient "
               f"{max(r['reduce_ms'] for r in ranks):.3f} ms; kernel D "
               f"launches summed over ranks {d}")
-        if d <= 0 or h <= 0 or any(other.values()):
+        if d <= 0 or h <= 0 or i_launches != d or any(other.values()):
             fail(f"multi-GPU {n} ranks: kernel D launches {d}, kernel H "
-                 f"{h}, others {other}")
+                 f"{h}, kernel I {i_launches}, others {other}")
         return ranks, secs, d
 
     ranks, secs, d = launch(w, None, MULTI_TIMEOUT)
@@ -3588,7 +3673,7 @@ def main() -> None:
     launches = build.launches()
     print(f"  launches in one run: {launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
     if launches != expected:
         fail(f"launch counts {launches}, expected {expected}")
     iters = 3
@@ -3761,6 +3846,10 @@ def main() -> None:
               "none (matching/ransac.py's finish is XLA's)",
               d["h"]["launches"], d["h"]["err"], d["h"]["ms"],
               d["h"]["plain_ms"], (d["h"]["bound_ms"], d["h"]["bound_by"])),
+        entry("sample_pairs", "sample.cu",
+              "none (matching/ransac.py's statistics and sampling are XLA's)",
+              d["i"]["launches"], d["i"]["err"], d["i"]["ms"],
+              d["i"]["plain_ms"], (d["i"]["bound_ms"], d["i"]["bound_by"])),
     ]
     # for kernel D also: the device operations one wrapper call launches, its
     # time against the kernel it replaced (that one's input staging
@@ -3781,9 +3870,13 @@ def main() -> None:
     kernels[7].update({key: d["h"][key] for key in (
         "device_ops_per_call", "device_ms", "plain_device_ops",
         "match_call_device_ops")})
+    # for kernel I: its device time and the plain twin's device operations,
+    # at the identification call's P and the x4 cell's
+    kernels[8].update({key: d["i"][key] for key in (
+        "device_ops_per_call", "device_ms", "plain_device_ops", "by_pairs")})
     # launches in the file pipeline's stage that runs each kernel
     for k, counter in zip(kernels, build.KERNELS):
-        stage = ("matching" if counter in ("match", "finish")
+        stage = ("matching" if counter in ("match", "finish", "sample")
                  else "preprocessing")
         k["file_pipeline_launches"] = fp["launches"][stage][counter]
     # launches in run_all over the formats tree (counts set to 0 just

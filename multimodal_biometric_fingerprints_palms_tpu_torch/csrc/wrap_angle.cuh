@@ -1,6 +1,7 @@
-// The matcher's angle wrap, |torch.remainder(x + pi, 2 pi) - pi| in float32
-// bit for bit, for the kernels that gate on an orientation difference (D,
-// match.cu; H, finish.cu).
+// The matcher's angle wrap, torch.remainder(x + pi, 2 pi) - pi in float32
+// bit for bit, for the kernels that take an orientation difference (D,
+// match.cu, and H, finish.cu, gate on its absolute value; I, sample.cu,
+// keeps the sampled angle).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,8 +10,8 @@
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-static __device__ __forceinline__ float wrap_abs(float x) {
-  // |torch.remainder(x + pi, 2 pi) - pi|. The remainder's fmod by hand
+static __device__ __forceinline__ float wrap_angle(float x) {
+  // torch.remainder(x + pi, 2 pi) - pi. The remainder's fmod by hand
   // where its quotient is 0 or 1, which a sum of three angles in [-pi, pi]
   // always gives: v itself below 2 pi, v -+ 2 pi below 4 pi (exact: the
   // difference of two floats within a factor of two of each other is a
@@ -22,5 +23,10 @@ static __device__ __forceinline__ float wrap_abs(float x) {
   else if (av < 2.0f * kTwoPi) r = copysignf(__fsub_rn(av, kTwoPi), v);
   else r = fmodf(v, kTwoPi);
   if (r < 0.0f) r = __fadd_rn(r, kTwoPi);   // the divisor's sign
-  return fabsf(__fsub_rn(r, kPi));
+  return __fsub_rn(r, kPi);
+}
+
+static __device__ __forceinline__ float wrap_abs(float x) {
+  // |torch.remainder(x + pi, 2 pi) - pi|
+  return fabsf(wrap_angle(x));
 }

@@ -32,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # Every kernel source of the port; each is compiled into the one library.
 SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu", "nlm.cu",
-           "binarize.cu", "morph.cu", "finish.cu")
+           "binarize.cu", "morph.cu", "finish.cu", "sample.cu")
 # Headers the sources include; they are part of the library's hash.
 HEADERS = ("packed_words.cuh", "wrap_angle.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -40,7 +40,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 KERNELS = ("clahe", "cc", "thin", "match", "nlm", "binarize", "morph",
-           "finish")
+           "finish", "sample")
 for _kernel in KERNELS:
     COUNTERS.setdefault(f"kernel.{_kernel}", 0)
 
@@ -88,6 +88,12 @@ _SIGNATURES = {
     # stop_ratio, use_type, cross_check, stream
     "mbfp_finish_match": (*(_P,) * 23, _I, _I, _I, _F, _F, _F, _F, _F, _I,
                           _I, _P),
+    # xy, type, orientation, quality, coherence, angular_stability, valid of
+    # A and of B; u; wa, wb, na, nb, possible, reject, theta, t, has_cand;
+    # p, h, k, chunk_a, chunk_b, stream
+    "mbfp_sample_hypotheses": (*(_P,) * 24, _I, _I, _I, _I, _I, _P),
+    # x, out, rows, k, chunk, stream (kernel I's scans alone, for checks)
+    "mbfp_scan_rows": (_P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,8 +1,10 @@
 """RANSAC hypothesis scoring: kernel D (``csrc/match.cu``) and its plain twin;
-the finish: kernel H (``csrc/finish.cu``), whose plain twin is
-``ransac._finish_match``; and the matcher's batch entry points built on them
-(port of ``matching/pallas_match.py`` and of the batch functions of
-``matching/ransac.py``).
+the per-pair statistics and hypothesis sampling: kernel I (``csrc/sample.cu``),
+whose plain twin is ``ransac._pair_stats`` followed by
+``ransac.sample_hypotheses``; the finish: kernel H (``csrc/finish.cu``), whose
+plain twin is ``ransac._finish_match``; and the matcher's batch entry points
+built on them (port of ``matching/pallas_match.py`` and of the batch
+functions of ``matching/ransac.py``).
 
 Kernel D replaces the TPU kernels ``hypothesis_scores_pallas_grouped``
 (``_grouped_kernel``) and ``hypothesis_scores_pallas`` (``_match_kernel``),
@@ -19,11 +21,12 @@ so no invalid pairing passes the distance gate and no mask is needed. The
 plain twin stages that as feature planes (``_features``); the kernel reads
 the matcher's own tensors and displaces on load, so a call is one launch.
 
-``hypothesis_scores`` and ``finish_match`` dispatch on the device: CPU
-tensors run the plain twin, CUDA tensors launch the kernel; anything else
-raises. Every matcher entry point scores through ``hypothesis_scores``,
-and the full pass finishes through ``finish_match``, so there is one
-scoring route on every device: the JAX package's XLA route
+``sample_pairs``, ``hypothesis_scores`` and ``finish_match`` dispatch on
+the device: CPU tensors run the plain twin, CUDA tensors launch the kernel;
+anything else raises. Every matcher entry point samples through
+``sample_pairs`` and scores through ``hypothesis_scores``, and the full pass
+finishes through ``finish_match``, so there is one scoring route on every
+device: the JAX package's XLA route
 (``ransac.match_pairs_batch``, ``raw ** 0.75``) and its Pallas route
 compute the same results within the tests' tolerances, and the port
 reproduces the Pallas kernels' formula.
@@ -41,13 +44,13 @@ from ..kernels import build as _build
 from ..utils.profiling import count, span, traced
 from .ransac import (MatchParams, MatchResult, _cos_sin, _finish_match, _fma,
                      _NN_Q, _NN_SAT, _pair_stats, _take, anchor_promote,
-                     sample_hypotheses)
+                     hypothesis_uniforms, sample_hypotheses)
 
 # Pairs and hypotheses per step of the plain twin: the fma emulation's
 # float64 (512, 25, K, K) temporaries are 0.42 GB each at K=64.
 _PAIR_CHUNK = 512
 _HYP_CHUNK = 25
-_MAX_K = 128           # kernels D and H (D: 7 index bits under the quantized distance)
+_MAX_K = 128           # kernels D, H and I (D: 7 index bits under the quantized distance)
 _HYP_BLOCK = 32        # kernel D: hypotheses per block, grid (P, ceil(H/32))
 
 
@@ -129,6 +132,86 @@ def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if x.dtype == dtype and x.is_contiguous():
         return x
     return x.to(dtype).contiguous()
+
+
+# The (H, 2) uniforms of each (seed, ransac_iter, full_iters, device), kept
+# on the device: a call reads them with no host draw and no blocking copy.
+_UNIFORMS: dict = {}
+
+
+def device_uniforms(p: MatchParams, device: torch.device) -> torch.Tensor:
+    """``hypothesis_uniforms(p)`` on ``device``, uploaded by the first call
+    for its (seed, ransac_iter, full_iters, device) and kept."""
+    key = (p.seed, p.ransac_iter, p.full_iters, device)
+    u = _UNIFORMS.get(key)
+    if u is None:
+        u = _UNIFORMS[key] = hypothesis_uniforms(p).to(device)
+    return u
+
+
+def cumsum_chunk(rows: int, k: int) -> int:
+    """Leaves a block of the card's ``torch.cumsum`` scans at once along the
+    last dimension of a (rows, k) tensor, as PyTorch's launcher picks it
+    (``get_log_num_threads_x_inner_scan`` in ``ATen/native/cuda/
+    ScanUtils.cuh``, unsigned arithmetic included); 0 for one row, which
+    goes to cub's scan. Kernel I adds in the order this gives."""
+    if rows == 1:
+        return 0
+    log_x, log_y = (k - 1).bit_length(), (rows - 1).bit_length()
+    log_nx = ((9 + ((log_x - log_y) & 0xFFFFFFFF)) & 0xFFFFFFFF) // 2
+    return 2 << min(max(4, log_nx), 9)
+
+
+def sample_pairs_cuda(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams):
+    """Kernel I on CUDA tensors: one launch for the per-pair statistics and
+    the sampled hypotheses; the same outputs as ``_pair_stats`` followed by
+    ``sample_hypotheses``: (wa, wb, na, nb, possible, reject, theta, t,
+    has_cand)."""
+    pnum, k = a.valid.shape
+    h = p.ransac_iter
+    if k > _MAX_K or k & (k - 1):
+        raise ValueError(f"K={k} must be a power of two <= {_MAX_K}")
+    if a.xy.shape != (pnum, k, 2) or b.xy.shape != (pnum, k, 2) or any(
+            x.shape != (pnum, k) for ms in (a, b) for x in ms[1:]):
+        raise ValueError("inconsistent pair shapes")
+    if pnum >= 2 ** 31 or not 0 <= h < 2 ** 31:
+        raise ValueError(f"P={pnum} or H={h} out of range")
+    dev = a.xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"sample_pairs_cuda needs a CUDA tensor, got {dev}")
+    if any(x.device != dev for x in (*a, *b)):
+        raise ValueError("sample_pairs_cuda needs every tensor on one device")
+    f32, i32 = torch.float32, torch.int32
+    empty = lambda *s, dt=f32: torch.empty(s, dtype=dt, device=dev)
+    out = (empty(pnum, k), empty(pnum, k), empty(pnum, dt=i32),
+           empty(pnum, dt=i32), empty(pnum), empty(pnum, dt=torch.bool),
+           empty(pnum, h), empty(pnum, h, 2), empty(pnum, h))
+    if pnum == 0:
+        return out
+    types = (f32, i32, f32, f32, f32, f32, torch.bool)   # MinutiaeSet's order
+    args = [_as(x, dt) for ms in (a, b) for x, dt in zip(ms, types)]
+    args.append(device_uniforms(p, dev))
+    rc = _build.load_library().mbfp_sample_hypotheses(
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in out),
+        pnum, h, k, cumsum_chunk(pnum, k), cumsum_chunk(pnum * h, k),
+        _build.current_stream(a.xy))
+    _build.check(rc, "mbfp_sample_hypotheses")
+    count("kernel.sample")
+    return out
+
+
+def sample_pairs(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams):
+    """The per-pair statistics and the sampled hypotheses of (P, K) pairs:
+    (wa, wb, na, nb, possible, reject, theta, t, has_cand). CPU tensors run
+    ``_pair_stats`` (span ``match.stats``) then ``sample_hypotheses`` (span
+    ``match.sample``); CUDA tensors launch kernel I inside ``match.sample``."""
+    if a.xy.device.type == "cpu":
+        with span("match.stats"):
+            stats = _pair_stats(a, b)
+        with span("match.sample"):
+            return (*stats, *sample_hypotheses(a, b, stats[0], stats[1], p))
+    with span("match.sample"):
+        return sample_pairs_cuda(a, b, p)
 
 
 def hypothesis_scores_cuda(a: MinutiaeSet, b: MinutiaeSet, wa, wb, theta, t,
@@ -248,16 +331,13 @@ def finish_match(a: MinutiaeSet, b: MinutiaeSet, wa, wb, possible, na, nb,
 def match_pairs_batch(a: MinutiaeSet, b: MinutiaeSet,
                       p: MatchParams = MatchParams()) -> MatchResult:
     """Batched 1:1 matching of (P, K) MinutiaeSets, the full pass:
-    sampling, hypothesis scoring (kernel D on a CUDA device), then the
-    finish (selection, Kabsch refine, cross-check; kernel H on a CUDA
-    device). Spans, under ``match.batch``: ``match.stats``,
-    ``match.sample``, ``match.score`` and ``match.finish``; counts
-    ``match.pairs``."""
+    statistics and sampling (kernel I on a CUDA device), hypothesis scoring
+    (kernel D on a CUDA device), then the finish (selection, Kabsch refine,
+    cross-check; kernel H on a CUDA device). Spans, under ``match.batch``:
+    ``match.stats`` (CPU only), ``match.sample``, ``match.score`` and
+    ``match.finish``; counts ``match.pairs``."""
     count("match.pairs", a.valid.shape[0])
-    with span("match.stats"):
-        wa, wb, na, nb, possible, reject = _pair_stats(a, b)
-    with span("match.sample"):
-        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
+    wa, wb, na, nb, possible, reject, theta, t, cand = sample_pairs(a, b, p)
     with span("match.score"):
         scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
                                            possible, p)
@@ -291,10 +371,7 @@ def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
     hypotheses are a prefix of the full pass's, so a miss can only be a
     pair whose good transforms all lie in the tail. Spans as
     ``match_pairs_batch``'s, without ``match.finish``."""
-    with span("match.stats"):
-        wa, wb, _, _, possible, reject = _pair_stats(a, b)
-    with span("match.sample"):
-        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
+    wa, wb, _, _, possible, reject, theta, t, cand = sample_pairs(a, b, p)
     with span("match.score"):
         scores, counts = hypothesis_scores(a, b, wa, wb, theta, t, cand,
                                            possible, p)

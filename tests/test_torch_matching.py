@@ -839,3 +839,200 @@ def test_match_pairs_batch_launches_kernel_h_once(card):
 def test_identify_through_kernel_h_equals_the_plain_finish(card):
     r = _finish_tool().identify_against_plain(card)
     assert r["max"] <= 1e-6 and r["mates_top1"] == 3, r
+
+
+# --- kernel I, the statistics and the sampling --------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _sample_tool():
+    """``tools/sample_check.py``: the sampling's card inputs and the
+    comparison of kernel I with the plain route, shared with the script
+    that runs them on a card."""
+    import importlib.util
+    path = Path(__file__).resolve().parent.parent / "tools" / "sample_check.py"
+    spec = importlib.util.spec_from_file_location("sample_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sample_pairs_input(device="cpu", pnum=24, k=32):
+    a, b = _sample_tool().templates(0, pnum, k)
+    return minutiae_from_numpy(a, device), minutiae_from_numpy(b, device)
+
+
+def test_sample_pairs_sends_cpu_tensors_to_the_plain_route(monkeypatch):
+    """The sampling's dispatcher runs ``_pair_stats`` then
+    ``sample_hypotheses`` on CPU tensors, unchanged, inside the spans
+    ``match.stats`` and ``match.sample``, and launches nothing."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import profiling
+    calls = []
+    for name in ("_pair_stats", "sample_hypotheses"):
+        shipped = getattr(tcm, name)
+
+        def spy(*args, _f=shipped, _n=name):
+            calls.append((_n, profiling._stack()[-1].name, args[0].xy.device))
+            return _f(*args)
+
+        monkeypatch.setattr(tcm, name, spy)
+    a, b = _sample_pairs_input()
+    p = tr.MatchParams(ransac_iter=40)
+    before = build.launches()
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = tcm.sample_pairs(a, b, p)
+    profiling.clear()
+    stats = tr._pair_stats(a, b)
+    want = (*stats, *tr.sample_hypotheses(a, b, stats[0], stats[1], p))
+    cpu = torch.device("cpu")
+    assert calls == [("_pair_stats", "match.stats", cpu),
+                     ("sample_hypotheses", "match.sample", cpu)]
+    assert build.launches() == before
+    assert int(want[5].sum()) >= 3 and int((want[8] == 0).sum()) >= 40
+    assert len(got) == len(want) == 9
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_match_pairs_batch_samples_through_the_dispatcher(monkeypatch):
+    """``match_pairs_batch`` and the screen sample through
+    ``sample_pairs``, once a call."""
+    shipped = tcm.sample_pairs
+    seen = []
+
+    def spy(*args):
+        seen.append(args[2].ransac_iter)
+        return shipped(*args)
+
+    monkeypatch.setattr(tcm, "sample_pairs", spy)
+    a, b = _sample_pairs_input(pnum=8)
+    p = tr.MatchParams(ransac_iter=16)
+    got = tcm.match_pairs_batch(a, b, p)
+    tcm.screen_pairs_batch_kernel(a, b, p._replace(ransac_iter=8,
+                                                   full_iters=16))
+    assert seen == [16, 8]
+    monkeypatch.setattr(tcm, "sample_pairs", shipped)
+    for x, y in zip(got, tcm.match_pairs_batch(a, b, p)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "k48", "k256", "shapes",
+                                  "h_past_the_grid"])
+def test_sample_pairs_cuda_refuses_what_kernel_i_does_not_take(case):
+    """Kernel I's wrapper raises on a CPU or other non-CUDA tensor, on K
+    not a power of two or over 128, on fields whose shapes do not fit one
+    another, and on H past what the kernel indexes, before it draws or
+    uploads a uniform or launches anything."""
+    before = build.launches()
+    p = tr.MatchParams(ransac_iter=12)
+    dev = "cpu" if case == "cpu" else "meta"
+    a, b = _sample_pairs_input(dev, pnum=4, k=64 if case[0] == "k" else 32)
+    match = "CUDA tensor"
+    if case[0] == "k":
+        k = int(case[1:])
+        grow = lambda x: torch.zeros(x.shape[:1] + (k,) + x.shape[2:],
+                                     dtype=x.dtype, device="meta")
+        a, b = tr.MinutiaeSet(*map(grow, a)), tr.MinutiaeSet(*map(grow, b))
+        match = "power of two"
+    elif case == "shapes":
+        b = b._replace(quality=b.quality[:, :-1])        # one slot short
+        match = "inconsistent"
+    elif case == "h_past_the_grid":
+        p = p._replace(ransac_iter=2 ** 31)
+        match = "out of range"
+    cached = dict(tcm._UNIFORMS)
+    with pytest.raises(ValueError, match=match):
+        tcm.sample_pairs_cuda(a, b, p)
+    if case == "meta":
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tcm.sample_pairs(a, b, p)
+    assert build.launches() == before and tcm._UNIFORMS == cached
+
+
+def test_device_uniforms_keeps_one_copy_a_key(monkeypatch):
+    """The uniforms' cache holds one tensor a (seed, ransac_iter,
+    full_iters, device), equal to ``hypothesis_uniforms``, and hands the
+    same tensor back on every later call."""
+    monkeypatch.setattr(tcm, "_UNIFORMS", {})
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    params = [tr.MatchParams(), tr.MatchParams(seed=7),
+              tr.MatchParams(ransac_iter=32, full_iters=300),
+              tr.MatchParams(ransac_iter=32)]
+    first = {(p, d): tcm.device_uniforms(p, d) for p in params
+             for d in (cpu, meta)}
+    for (p, d), u in first.items():
+        assert tcm.device_uniforms(p, d) is u
+        assert u.device == d and u.dtype == torch.float32
+        assert u.shape == (p.ransac_iter, 2)
+        if d == cpu:
+            assert torch.equal(u, tr.hypothesis_uniforms(p))
+    assert sorted(tcm._UNIFORMS, key=str) == sorted(
+        ((p.seed, p.ransac_iter, p.full_iters, d) for p in params
+         for d in (cpu, meta)), key=str)
+    screen = tcm.device_uniforms(params[2], cpu)    # the prefix rule's draw
+    assert torch.equal(screen, tcm.device_uniforms(params[0], cpu)[:32])
+
+
+@pytest.mark.parametrize("k,table", [
+    (64, {1: 0, 2: 256, 3: 128, 8: 128, 9: 64, 32: 64, 33: 32, 1024: 32,
+          32768: 32, 32769: 1024, 1215000: 1024}),
+    (128, {1: 0, 4: 256, 5: 128, 16: 128, 17: 64, 64: 64, 65: 32,
+           65536: 32, 65537: 1024}),
+    (32, {1: 0, 2: 128, 16: 64, 17: 32, 16384: 32, 16385: 1024})])
+def test_cumsum_chunk_follows_the_cards_scan(k, table):
+    """The leaves a block of the card's ``torch.cumsum`` scans at once, as
+    measured on the card (the chunk sizes whose Sklansky order matched every
+    row there): at 64 leaves 32 from 33 to 32,768 rows, 1,024 beyond; 0,
+    cub's scan, for one row."""
+    assert {rows: tcm.cumsum_chunk(rows, k) for rows in table} == table
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("use_type", [True, False])
+@pytest.mark.parametrize("hyps", [(300, 0), (32, 300)])
+@pytest.mark.parametrize("k", [32, 64, 128])
+def test_kernel_i_equals_the_plain_route_on_the_card(card, k, hyps, use_type):
+    """Kernel I against ``_pair_stats`` + ``sample_hypotheses`` on the same
+    card inputs, 3 seeds x P in {1, 3, 40, 512, 1024, 2048, 4050, 4096},
+    with padded rows, rejects, pairs without a candidate, tied weights and
+    types beyond 0 and 1: every output bit-equal."""
+    tool = _sample_tool()
+    for seed in tool.SEEDS:
+        for pnum in tool.PAIRS:
+            r = tool.case(seed, pnum, k, hyps, use_type, card)
+            assert tool.ok(r), (seed, pnum, r)
+
+
+@pytest.mark.card
+def test_kernel_i_edge_uniforms_on_the_card(card):
+    """u * total rounding up to the total, and u = 0: bit-equal."""
+    tool = _sample_tool()
+    for seed in tool.SEEDS:
+        for pnum in (1, 40, 1024):
+            r = tool.edge_uniforms(seed, pnum, card)
+            assert tool.ok(r), (seed, pnum, r)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [32, 64, 128])
+def test_kernel_i_scans_equal_torch_cumsum_on_the_card(card, k):
+    tool = _sample_tool()
+    assert {rows: tool.scan_check(rows, k, card)
+            for rows in tool.SCAN_ROWS} == dict.fromkeys(tool.SCAN_ROWS, 0)
+
+
+@pytest.mark.card
+def test_match_pairs_batch_launches_kernel_i_once(card):
+    assert _sample_tool().launches_per_call(card) == {
+        "sample": 1, "match": 1, "finish": 1}
+
+
+@pytest.mark.card
+def test_a_second_match_call_makes_no_synchronising_call(card):
+    assert _sample_tool().second_call_syncs(card) == ""
+
+
+@pytest.mark.card
+def test_identify_through_kernel_i_equals_the_plain_route(card):
+    r = _sample_tool().identify_against_plain(card)
+    assert r["differ"] == 0 and r["mates_top1"] == 3, r

@@ -576,6 +576,23 @@ def test_kernel_h_is_built_and_declared():
         assert "float wrap_abs(" not in text, name
 
 
+def test_kernel_i_is_built_and_declared():
+    """Kernel I (the statistics and the sampling) is a source of the
+    library with its counter; its C entry point takes the two templates'
+    14 fields, the uniforms, its 9 outputs, five sizes and the stream; the
+    scans' check entry point is declared beside it; and it takes the
+    sampled angle from the one angle-wrap header."""
+    assert "sample.cu" in build.SOURCES and "sample" in build.KERNELS
+    assert build.launches()["sample"] >= 0
+    sig = build._SIGNATURES["mbfp_sample_hypotheses"]
+    assert sig.count(build._P) == 25 and len(sig) == 30   # 24 tensors + stream
+    assert build._SIGNATURES["mbfp_scan_rows"].count(build._P) == 3
+    src = (build.CSRC_DIR / "sample.cu").read_text()
+    for entry in ("mbfp_sample_hypotheses", "mbfp_scan_rows"):
+        assert f'extern "C" int {entry}(' in src
+    assert '#include "wrap_angle.cuh"' in src and "wrap_angle(" in src
+
+
 def test_kernels_f_and_a_take_scratch_from_the_wrapper():
     """Kernel F's entry point takes the mean and std scratch planes beside
     the max-std words (one filtering pass, two device launches), kernel A's
