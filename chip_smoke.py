@@ -4,42 +4,35 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multimodal_biometric_fingerprints_palms_tpu_torch/csrc``
-and drives the port's paths on the card:
+and drives the port's paths on the card. The kernels are held to their
+plain twins by the card tests (``python3 -m pytest -m card`` over the
+eight test files of the kernels' twins, as README's card section gives it);
+this script holds each kernel to its twin once more on the main path's
+inputs, times them and runs what no test and no benchmark cell holds:
 
-- enhance + extract: checks kernels A (CLAHE), B (connected components),
-  C (thinning), E (non-local means), F (binarize front) and G
-  (open/erode/reconstruct, a one-pass cross opening) against their plain
-  PyTorch twins at the main path's shapes (batch 128 of 320x256 images, on
-  real stage inputs), A, F and G also against the kernels they replaced
-  (``tools/clahe_parent.cu``, ``tools/binarize_parent.cu``,
-  ``tools/morph_parent.cu``, built here), A and F on odd tile sides and a
-  1024x1024 frame, G on random, adversarial and ragged masks and on batches
-  of 512x512 and 1024x1024 frames, then drives ``preprocess_fingerprint``
-  -> ``extract_minutiae`` -> ``postprocess_minutiae`` on
-  ``make_batch(128)`` (the port's copy of the
-  JAX benchmark's input, ``utils/synthetic.py``), asserts that it
-  went through every kernel, and checks its output;
-- the 1:1 RANSAC matcher: checks kernel D (hypothesis scoring) against its
-  plain twin and against the kernel it replaced (``tools/match_parent.cu``)
-  at P=512 pairs, K=64, H=300 under the FRR, FAR and cascade
-  screen parameters, kernel H (the finish) against its plain twin at the
-  identification shape (P=1024, H=300, K=64) with its time, launches and
-  bound, kernel I (the per-pair statistics and the sampling) against its
-  plain twin at P=1024 and 4050, H=300, K=64, bit for bit, with its time,
-  launches and bound, times the full pass at chunks of 512 and 4096 pairs
-  and breaks each chunk's host and device time down by step (the device
-  time under ``torch.profiler``), runs the FRR/FAR/EER protocol of the reference golden
+- the kernels: one table of kernel ms, its largest difference from its
+  plain twin under the card tests' tolerances (``tests/torch_card.py``),
+  device time and device operations a call (``cudabench.tracing``), plain
+  twin ms and bound (``cudabench/work.py``) at the main path's shapes (batch 128 of 320x256
+  images of ``make_batch(128)``, the port's copy of the JAX benchmark's
+  input, on real stage inputs; D at P=512, H=300, K=64; H and I at an
+  identification call);
+- the main path: ``preprocess_fingerprint`` -> ``extract_minutiae`` ->
+  ``postprocess_minutiae`` on ``make_batch(128)``, each kernel's launches
+  in one run (A x3, B x4, C, E, F, G x1, D, H, I none), its outputs, 4 images
+  against the port on the CPU, and the minutiae of 16 blob prints;
+- the 1:1 RANSAC matcher: the FRR/FAR/EER protocol of the reference golden
   (``tests/fixtures/parity_full_golden.json``) on the repository's 136
-  templates with the cascade on and off and holds it to the golden's
-  tolerances, and runs enhance -> match on 8 users x 2 sessions of
-  synthetic prints under the production matching configuration;
+  templates with the cascade on and off, held to the golden's tolerances
+  with its launches counted, and enhance -> match on 8 users x 2 sessions
+  of synthetic prints under the production matching configuration;
 - the file pipeline: ``pipeline.run_all(skip_ssl=True,
   demo_matching=False)`` from files on disk (``tools/polyu_set.py``: 160
   PolyU-shaped JPEGs of 320x240, a BMP, a colour PNG and a TIFF it must
   skip), counting each stage's kernel launches (A, B, C, E, F, G in
-  preprocessing, D in matching), holding 4 images against the port on the
-  CPU from the same files, checking every output file, the JSON schema,
-  ``roc.png`` and the EER bounds, and printing each stage's seconds;
+  preprocessing, D, H and I in matching), holding 4 images against the port
+  on the CPU from the same files, checking every output file, the JSON
+  schema, ``roc.png`` and the EER bounds, and printing each stage's seconds;
 - the formats: every file of ``tests/fixtures/formats`` through the codec,
   grey and RGB, against OpenCV's digests in ``expected.json`` (ms a file
   by reader), then ``run_all`` over that 16-subject tree with 13 of its
@@ -57,10 +50,7 @@ and drives the port's paths on the card:
   CPU, the screen's recall at ``min_inliers=6`` on 12-minutia templates,
   and ``identify`` / ``identify_batch`` (64 probes) against the gallery
   padded to 1,536 (ms/probe, top-1 user, each row equal to ``identify``);
-- kernel C beyond one block's shared memory: its device-memory form
-  against its twin at (2, 2048, 1024), (2, 1536, 1536), (1, 2048, 2048) and
-  (1, 4096, 4096) on ridge quilts and adversarial masks, and a directory
-  whose largest file is 2048x1024 through ``run_preprocessing``;
+- a directory whose largest file is 2048x1024 through ``run_preprocessing``;
 - the Gabor stage: ``preprocess_fingerprint(gabor=True)`` on
   ``make_batch(128)`` with the config's parameters (the cuDNN bank against
   the CPU port's tap-by-tap sums, the frequency map's blocks that differ,
@@ -86,12 +76,11 @@ and drives the port's paths on the card:
   ranks on one device), unless gloo refuses CUDA tensors.
 
 Imports nothing of JAX or of the JAX package (nor OpenCV, PIL, PyYAML,
-pandas or matplotlib). Prints the card's name and
-power limit, one JSON line with every kernel's launches, error, times and
-bound (the least time the card could take: bytes over its memory rate or
-operations over its float32 rate, whichever is larger), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
-any failure (a kernel timed under its bound is one: such a bound is none),
-when no GPU is available, or outside a checkout of the repository.
+pandas or matplotlib). Prints the card's name and power limit, one JSON
+line with the kernel table and each kernel's launches on the paths above,
+and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero on
+any failure, when no GPU is available, or outside a checkout of the
+repository.
 """
 
 from __future__ import annotations
@@ -102,53 +91,43 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "multimodal_biometric_fingerprints_palms_tpu_torch"
-BATCH = 128
 # Skeleton agreement of the port on the card against the port on the CPU
 # for the same images (same bound as tests/test_torch_enhance.py holds the
 # port to against the JAX package): NLM's float sums and exp differ in the
 # last bits between devices, which can move a ridge edge by one pixel.
 MAX_SKEL_MISMATCH = 0.05      # of the CPU skeleton's pixels
 MAX_COUNT_DIFF = 2            # valid minutiae per image
-CLAHE_ATOL = 1.0 / 255.0 + 1e-6
-CLAHE_MAX_OFF = 1e-3          # fraction of pixels allowed off by <= 1/255
-# Kernel E visits the offsets in its twin's order with the twin's rounding
-# points, so the aim is 0; the slack is for expf against torch.exp landing
-# on the two sides of a bf16 rounding boundary.
-NLM_ATOL = 1e-5
-NLM_MAX_OFF = 1e-4            # fraction of pixels allowed off by > 1e-6
-# Kernel F follows its twin operation by operation except for the order of
-# the 1,024-term patch mean and variance sums, which can move the
-# `p_std >= 3/255` gate of a patch that sits on it.
-F_MAX_MISMATCH = 1e-3         # fraction of mask pixels
-# Published peaks of one H100 SXM: device memory rate, and float32 rate
-# outside the tensor cores (integer and logic operations are counted at the
-# same rate).
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
 
-# Matcher. Kernel D against its plain twin: counts exact; scores within
-# 1e-6, because the warp's shuffle tree sums the K inlier scores in another
-# order than the twin's sum. Against the kernel it replaced: counts exact.
-D_ATOL = 1e-6
-PARITY_FULL = ROOT / "tests" / "fixtures" / "parity_full"
+# Matcher. The chunk, the hypotheses, the gates and kernel D's tolerance
+# are the card tests' (tests/torch_card.py), read once main() has checked
+# the checkout.
 GOLDEN = ROOT / "tests" / "fixtures" / "parity_full_golden.json"
-CHUNK = 512                   # pairs per device chunk (the runner's default)
-RATE_CHUNKS = (512, 4096)     # chunk sizes of the full-pass rate
-H_FULL = 300                  # RANSAC hypotheses of the full pass
-SCREEN_ITERS = 32             # configs/config_matching.yml matching.screen_iters
 # configs/config_matching.yml's values, as constants: the script imports
 # nothing of the checkout before main() has checked that it is one
 PRODUCTION = dict(ransac_iter=300, stop_inlier_ratio=0.15, seed=42,
                   peers=100, num_points=50, max_per_user=2, cascade=True)
-FRR_GATES = dict(dist_thresh=30.0, orient_thresh=math.radians(30.0),
-                 min_inliers=6)
-FAR_GATES = dict(dist_thresh=15.0, orient_thresh=math.radians(10.0),
-                 min_inliers=12)
+
+
+# each kernel's counter (``build.KERNELS``): its source under csrc/ and the
+# site of the JAX package it replaces
+_JAX_OPS = "multimodal_biometric_fingerprints_palms_tpu/ops"
+KERNEL_SITES = {
+    "clahe": ("clahe.cu", f"{_JAX_OPS}/pallas_kernels.py:1460"),
+    "cc": ("cc.cu", f"{_JAX_OPS}/pallas_cc.py:552"),
+    "thin": ("thin.cu", f"{_JAX_OPS}/pallas_bitpack.py:382"),
+    "match": ("match.cu", "multimodal_biometric_fingerprints_palms_tpu/"
+              "matching/pallas_match.py:218"),
+    "nlm": ("nlm.cu", f"{_JAX_OPS}/pallas_kernels.py:794"),
+    "binarize": ("binarize.cu", f"{_JAX_OPS}/pallas_kernels.py:1118"),
+    "morph": ("morph.cu", f"{_JAX_OPS}/pallas_bitpack.py:329"),
+    "finish": ("finish.cu", "none (matching/ransac.py's finish is XLA's)"),
+    "sample": ("sample.cu", "none (matching/ransac.py's statistics and "
+               "sampling are XLA's)"),
+}
 
 
 def fail(msg: str) -> None:
@@ -163,13 +142,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
 
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): the least time the card could take to
-    move ``nbytes`` (each input read once, each output written once) and to
-    do ``ops`` operations, whichever is larger."""
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def thinning_work(mask) -> float:
@@ -210,29 +182,6 @@ def opening_work(mask) -> float:
     return 6.0 * words * (h + 2 * -(-h // 32)) + 6.0 * words * h
 
 
-def reconstruct_sweeps(mask):
-    """(sweeps per image, whether the fixpoint is the opening): the
-    synchronous 8-connected dilations of the marker inside the opening that
-    change anything, as the JAX kernel's fixpoint loop takes them. The
-    argument in ``csrc/morph.cu`` says 1 for every image with an opening
-    that the marker misses somewhere, else 0, and the fixpoint the
-    opening."""
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
-        binary_dilate, binary_erode, binary_opening)
-    opened = binary_opening(mask, 3, shape="ellipse")
-    reached = binary_erode(opened, 3, shape="ellipse")
-    sweeps = torch.zeros(opened.shape[0], dtype=torch.int64,
-                         device=opened.device)
-    while True:
-        new = binary_dilate(reached, 3, shape="rect") & opened
-        changed = (new != reached).flatten(1).any(dim=1)
-        if not bool(changed.any()):
-            return sweeps, bool(torch.equal(reached, opened))
-        sweeps += changed
-        reached = new
-
-
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` runs after a warm-up."""
     import torch
@@ -258,367 +207,6 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def profile_ops(fn) -> list:
-    """The device operations (kernels, copies, fills) one call of ``fn``
-    issues, as ``torch.profiler`` events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a short window has been seen to come back without the operation
-        # at its edge (kernel D's one launch as none): keep the edges away
-        # from ``fn`` by a pause and a sentinel kernel on either side, and
-        # take the sentinels out by name
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "spin_kernel" not in e.name]
-
-
-def device_ms(ops) -> float:
-    """Summed device time of ``profile_ops`` events, ms."""
-    return sum(e.time_range.elapsed_us() for e in ops) / 1e3
-
-
-def top_ops(ops, n: int = 5) -> str:
-    """The ``n`` device operations with the most summed time, by name."""
-    top = {}
-    for e in ops:
-        ms, cnt = top.get(e.name, (0.0, 0))
-        top[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    ranked = sorted(top.items(), key=lambda kv: -kv[1][0])[:n]
-    return "; ".join(f"{name[:70]} {ms:.3f} ms ({c})"
-                     for name, (ms, c) in ranked)
-
-
-def stage_times(x) -> dict:
-    """Wall time of each stage of the main path, synchronized around it."""
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
-        enhance as E)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.orientation import (
-        compute_orientation_field)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
-        extract_minutiae, postprocess_minutiae)
-    out = {}
-
-    def timed(name, fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn(*args)
-        torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t0) * 1e3
-        return r
-
-    n = timed("normalize", E.normalize_image, x)
-    d = timed("denoise", E.denoise_image, n)
-    s, m = timed("segment", E.segment_fingerprint, d)
-    f = timed("orientation", lambda: compute_orientation_field(
-        s, mask=m, block_size=16, smooth_sigma=3.0,
-        smooth_orientation_sigma=3.0))
-    b = timed("binarize", E.binarize, s)
-    sm = timed("smooth", E.smooth_fingerprint_skeleton, b.float())
-    sk = timed("thin", E.thinning_and_cleaning, sm, f.reliability)
-    ms = timed("extract", extract_minutiae, sk)
-    timed("postprocess", postprocess_minutiae, ms, sk)
-    return out
-
-
-def compare_exact(name: str, kern, plain) -> None:
-    """Fail unless the kernel's output equals its plain version's."""
-    import torch
-    a, b = kern(), plain()
-    torch.cuda.synchronize()
-    bad = int((a != b).sum())
-    print(f"  {name}: mismatches {bad} / {a.numel()}")
-    if bad:
-        fail(f"{name}: kernel differs from its plain version")
-
-
-def kernel_b_adversarial(dev) -> None:
-    """Kernel B against its twin where a tiled labelling is most likely to
-    break: components that cross every tile seam many times (spiral,
-    serpentine), the most runs a row holds (comb), the checkerboard (one
-    component 8-connected, all singletons 4-connected), the trivial planes,
-    frames that are no multiple of the tile, and frames far larger than a
-    block's shared memory. Labels and all five modes, both connectivities;
-    one line per input."""
-    import numpy as np
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_cc
-    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-        adversarial_masks)
-    g = np.random.default_rng(5)
-    inputs = {}
-    for h, w in ((320, 256), (33, 70), (7, 130), (1, 1), (2, 2),
-                 (1024, 1024)):
-        for name, m in adversarial_masks(h, w).items():
-            if h < 1024 or name in ("spiral", "serpentine", "checkerboard"):
-                inputs[f"{h}x{w} {name}"] = m[None]
-    inputs["1024x1024 random(0.55)"] = g.random((1, 1024, 1024)) < 0.55
-    modes = (("remove_small", dict(min_size=40)),
-             ("fill_holes", dict(max_size=40)),
-             ("clean", dict(min_size=40, max_size=40)),
-             ("largest", {}), ("reach", {}))
-    for name, arr in inputs.items():
-        m = torch.from_numpy(arr).to(dev)
-        mk = torch.from_numpy(g.random(arr.shape) < 0.001).to(dev)
-        bad, checks = 0, 0
-        for conn in (1, 2):
-            pairs = [(cuda_cc.cc_label_cuda(m, conn),
-                      cuda_cc.cc_label_plain(m, conn))]
-            for mode, kw in modes:
-                if mode == "reach":
-                    kw = dict(marker=mk)
-                pairs.append((cuda_cc.cc_filter_cuda(m, mode, conn, **kw),
-                              cuda_cc.cc_filter_plain(m, mode, conn, **kw)))
-            torch.cuda.synchronize()
-            bad += sum(int((a != b).sum()) for a, b in pairs)
-            checks += len(pairs)
-        print(f"  {name}: mismatches {bad} in {checks} comparisons "
-              f"(labels + 5 modes, conn 1 and 2)")
-        if bad:
-            fail(f"kernel B differs from its plain version on {name}")
-
-
-def kernel_c_frames(dev, gated) -> None:
-    """Kernel C against its twin beyond the main path's shape: frames that
-    are no multiple of a word (and one a single pixel), frames of 512x512
-    and 1024x1024 (the second in device memory), each frame also in the
-    device-memory form; on ridge masks
-    cut or tiled from the stage mask ``gated``, thick and one-pixel spirals,
-    one-pixel lines, the checkerboard and the trivial planes (a full frame
-    thins for min(H, W) / 2 iterations); both ``prune`` values and
-    ``max_iters`` of 1, 2 and 128; one line per frame."""
-    import numpy as np
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_thin
-    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-        adversarial_masks, spiral_mask)
-    # 4 x 4 stage masks side by side: ridges at any frame size up to 1280x1024
-    quilt = gated[:16].reshape(4, 4, *gated.shape[-2:]).permute(
-        0, 2, 1, 3).reshape(4 * gated.shape[-2], 4 * gated.shape[-1])
-    for h, w in ((320, 256), (33, 70), (7, 130), (1, 1), (320, 250),
-                 (512, 512), (1024, 1024)):
-        masks = {k: torch.from_numpy(v) for k, v in
-                 adversarial_masks(h, w).items()}
-        masks["thick spiral"] = torch.from_numpy(np.kron(
-            spiral_mask(-(-h // 4), -(-w // 4)),
-            np.ones((4, 4), bool))[:h, :w])
-        batch = torch.stack([quilt[:h, :w], quilt[-h:, -w:]]
-                            + [m.to(dev) for m in masks.values()])
-        bad = checks = 0
-        for iters in (1, 2, 128):
-            for prune in (False, True):
-                b = cuda_thin.zs_thin_plain(batch, iters, prune)
-                for form in ("auto", "device"):
-                    a = cuda_thin.zs_thin_cuda(batch, iters, prune, form)
-                    torch.cuda.synchronize()
-                    bad += int((a != b).sum())
-                    checks += 1
-        print(f"  {h}x{w}: mismatches {bad} in {checks} comparisons of "
-              f"{batch.shape[0]} masks (ridges x2, {', '.join(masks)}; "
-              f"max_iters 1, 2, 128; prune off and on; the size's form and "
-              f"the device-memory form)")
-        if bad:
-            fail(f"kernel C differs from its plain version at {h}x{w}")
-    full = torch.ones((2, 320, 256), dtype=torch.bool, device=dev)
-    compare_exact("thin full 320x256 to its fixpoint (max_iters 1024)",
-                  lambda: cuda_thin.zs_thin_cuda(full, 1024, True),
-                  lambda: cuda_thin.zs_thin_plain(full, 1024, True))
-    for nb, h, w in ((32, 512, 512), (8, 1024, 1024)):
-        big = torch.stack([quilt.roll((37 * i, 53 * i), (0, 1))[:h, :w]
-                           for i in range(nb)])
-        ms = time_ms(lambda: cuda_thin.zs_thin_cuda(big, 128, True), 10)
-        other = ""
-        if h * -(-w // 32) * 8 <= 232448:       # one block takes the frame
-            other = " (device-memory form {:.4f} ms)".format(time_ms(
-                lambda: cuda_thin.zs_thin_cuda(big, 128, True, "device"), 10))
-        b_ms, b_by = bound(2.0 * big.numel(), thinning_work(big))
-        print(f"  {nb} frames of {h}x{w} (tiled stage masks): kernel {ms:.4f} "
-              f"ms{other}, bound {b_ms:.4f} ms ({b_by})")
-
-
-# (batch, H, W) of kernel C's frames beyond one block's shared memory
-C_LARGE = ((2, 2048, 1024), (2, 1536, 1536), (1, 2048, 2048), (1, 4096, 4096))
-
-
-def kernel_c_large_frames(dev, gated) -> list:
-    """Kernel C's device-memory form against its twin on frames whose packed
-    image exceeds one block's shared memory: the batch of ridge quilts
-    (stage masks tiled, each image shifted), and the adversarial masks with
-    a thick spiral (the one-pixel spiral's Python walk is too slow at these
-    sizes) as a second batch; ``max_iters`` 1, 2 and 128, prune off and on.
-    Returns one dict a frame with the ridge batch's time and bound."""
-    import numpy as np
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_thin
-    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-        spiral_mask)
-    hs, ws = gated.shape[-2:]
-    n = min(16, gated.shape[0])
-    quilt = gated[:n].reshape(-1, 4, hs, ws).permute(0, 2, 1, 3).reshape(
-        -1, 4 * ws)                                   # (n / 4 * hs, 4 * ws)
-    out = []
-    for nb, h, w in C_LARGE:
-        reps = (-(-h // quilt.shape[0]), -(-w // quilt.shape[1]))
-        tiled = quilt.repeat(*reps)
-        ridges = torch.stack([tiled.roll((97 * i, 61 * i), (0, 1))[:h, :w]
-                              for i in range(nb)])
-        yy = torch.arange(h, device=dev)[:, None]
-        xx = torch.arange(w, device=dev)[None, :]
-        masks = {
-            "thick spiral": torch.from_numpy(np.kron(
-                spiral_mask(-(-h // 8), -(-w // 8)),
-                np.ones((8, 8), bool))[:h, :w]).to(dev),
-            "serpentine": ((yy % 2 == 0) | ((yy % 4 == 1) & (xx == w - 1))
-                           | ((yy % 4 == 3) & (xx == 0))),
-            "checkerboard": (yy + xx) % 2 == 0,
-            "comb": (xx % 2 == 0) | (yy == 0),
-            "full": torch.ones((h, w), dtype=torch.bool, device=dev),
-            "empty": torch.zeros((h, w), dtype=torch.bool, device=dev),
-        }
-        adv = torch.stack(list(masks.values()))
-        bad = checks = 0
-        for batch in (ridges, adv):
-            for iters in (1, 2, 128):
-                for prune in (False, True):
-                    a = cuda_thin.zs_thin_cuda(batch, iters, prune)
-                    b = cuda_thin.zs_thin_plain(batch, iters, prune)
-                    torch.cuda.synchronize()
-                    bad += int((a != b).sum())
-                    checks += 1
-                    del a, b
-        ms = time_ms(lambda: cuda_thin.zs_thin_cuda(ridges, 128, True), 5)
-        b_ms, b_by = bound(2.0 * ridges.numel(), thinning_work(ridges))
-        print(f"  ({nb}, {h}, {w}): mismatches {bad} in {checks} comparisons "
-              f"(ridge quilts x{nb}; {', '.join(masks)}; max_iters 1, 2, 128; "
-              f"prune off and on); ridges: kernel {ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-        if bad:
-            fail(f"kernel C differs from its plain version at ({nb}, {h}, {w})")
-        out.append({"shape": [nb, h, w], "ms": ms, "bound_ms": b_ms,
-                    "bound_by": b_by})
-    return out
-
-
-def kernel_e_small_frames(dev) -> None:
-    """Kernel E against its twin on frames smaller than its halo and no
-    multiple of its tiles or strips, and on frames where the two bodies of
-    the kernel meet, in both precisions; one line per frame."""
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
-        cuda_nlm, denoise)
-    g = torch.Generator(device="cpu").manual_seed(3)
-    for h, w in ((2, 2), (5, 37), (33, 70), (64, 64), (70, 67), (131, 195)):
-        img = torch.rand((3, h, w), generator=g).to(dev)
-        out = []
-        for prec in ("bf16", "f32"):
-            a = cuda_nlm.nlm_denoise_cuda(img, precision=prec)
-            d = (a - denoise.nlm_denoise_plain(img, precision=prec)).abs()
-            torch.cuda.synchronize()
-            out.append(f"{prec} max|d| {float(d.max()):.3g}, pixels that "
-                       f"differ {int((d > 0).sum())} / {d.numel()}")
-            if not torch.isfinite(a).all() or not float(d.max()) <= NLM_ATOL:
-                fail(f"NLM {prec} outside tolerance at {h}x{w}")
-        print(f"  nlm {h}x{w}: " + "; ".join(out))
-
-
-def kernel_g_phase(dev, cleaned, binary, tool, parent) -> dict:
-    """Kernel G against its plain twin, against ``open_cross_words_plain``
-    and against the kernel it replaced (``tools/morph_parent.cu``, wherever
-    that one takes the frame) on the main path's mask ``cleaned`` and on
-    ``tools/morph_variants.cases``; the reconstruction's changing sweeps on
-    ``cleaned`` (the identity, seen on the card); its time beside the
-    twin's, the parent's and the bound; the device operations of one call;
-    and its time on 512x512 and 1024x1024 batches."""
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_morph
-    compare_exact("binarize tail on the cleaned mask",
-                  lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned),
-                  lambda: cuda_morph.open_erode_reconstruct_plain(cleaned))
-    if not bool((cuda_morph.open_erode_reconstruct_cuda(cleaned) == binary).all()):
-        fail("F -> B -> G composed by hand differs from the path's binary mask")
-    sweeps, fixpoint_is_opening = reconstruct_sweeps(cleaned)
-    print(f"  the twin's reconstruction on the cleaned mask: changing sweeps "
-          f"per image {sorted(set(sweeps.tolist()))} (images with 1: "
-          f"{int((sweeps == 1).sum())} of {sweeps.numel()}); fixpoint equal "
-          f"to the opening: {fixpoint_is_opening}")
-    if int(sweeps.max()) > 1 or not fixpoint_is_opening:
-        fail("the reconstruction is not the identity on the cleaned mask")
-    # against the twin everywhere, the word algebra's twin on the card, and
-    # the parent kernel wherever it takes the frame
-    for case, m in tool.cases(cleaned).items():
-        got = cuda_morph.open_erode_reconstruct_cuda(m)
-        want = cuda_morph.open_erode_reconstruct_plain(m)
-        words = cuda_morph.open_cross_words_plain(m)
-        fits = m.shape[-2] * m.shape[-1] <= tool.PARENT_PIXELS
-        old = tool.run(parent, m) if fits else None
-        torch.cuda.synchronize()
-        bad = (int((got != want).sum()), int((got != words).sum()),
-               int((got != old).sum()) if fits else None)
-        print(f"  {case}: mismatches {bad[0]} against the twin, {bad[1]} "
-              f"against open_cross_words_plain, "
-              + (f"{bad[2]} against the parent kernel" if fits
-                 else "the parent refuses the frame")
-              + f" (of {m.numel()}; opening set {int(want.sum())})")
-        if any(bad[:2]) or bad[2]:
-            fail(f"kernel G differs on {case}")
-    kern = lambda: cuda_morph.open_erode_reconstruct_cuda(cleaned)
-    old = lambda: tool.run(parent, cleaned)
-    # in turns: parent, kernel, kernel, parent
-    turns = [time_ms(fn, 20) for fn in (old, kern, kern, old)]
-    g_ms, g_parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-    g_plain_ms = time_ms(
-        lambda: cuda_morph.open_erode_reconstruct_plain(cleaned), 3)
-    g_bound = bound(2.0 * cleaned.numel(), opening_work(cleaned))
-    print(f"  time per call, back to back: kernel {g_ms:.4f} ms, plain "
-          f"{g_plain_ms:.4f} ms, parent kernel {g_parent_ms:.4f} ms (in turns: "
-          + ", ".join(f"{t:.4f}" for t in turns)
-          + f"), bound {g_bound[0]:.4f} ms ({g_bound[1]})")
-    # ten calls a window: a window has been seen to come back one device
-    # op short, which rounds away over ten
-    calls = 10
-    g_ops = profile_ops(lambda: [kern() for _ in range(calls)])
-    parent_ops = profile_ops(lambda: [old() for _ in range(calls)])
-    g_per_call = round(len(g_ops) / calls)
-    g_dev = device_ms(g_ops) / max(len(g_ops), 1)
-    print(f"  device ops of {calls} wrapper calls: {len(g_ops)} "
-          f"({top_ops(g_ops, 2)}), {g_dev:.4f} ms each; the parent's: "
-          f"{len(parent_ops)}, "
-          f"{device_ms(parent_ops) / max(len(parent_ops), 1):.4f} ms each")
-    if g_per_call != 1:
-        fail(f"kernel G's wrapper launched {g_per_call} device ops a call, not 1")
-    for nb, side in ((16, 512), (4, 1024)):
-        big = torch.rand((nb, side, side), generator=torch.Generator(
-            device="cpu").manual_seed(side)).to(dev) < 0.8
-        b_ms, b_by = bound(2.0 * big.numel(), opening_work(big))
-        fn = lambda: cuda_morph.open_erode_reconstruct_cuda(big)
-        ops = profile_ops(lambda: [fn() for _ in range(calls)])
-        print(f"  ({nb}, {side}, {side}) random(0.8): kernel {time_ms(fn, 20):.4f}"
-              f" ms back to back, {device_ms(ops) / max(len(ops), 1):.4f} ms "
-              f"device time a call, bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=g_ms, plain_ms=g_plain_ms, parent_ms=g_parent_ms,
-                bound=g_bound, device_ops_per_call=g_per_call, device_ms=g_dev)
-
-
-# --- the matcher ------------------------------------------------------------
-
-def gather_pairs(ds, pairs):
-    """The (P, K) A and B MinutiaeSets of (P, 2) sample-index pairs."""
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
-        _gather)
-    return _gather(ds, pairs[:, 0]), _gather(ds, pairs[:, 1])
-
-
 def load_tool(name: str):
     """A script under ``tools/`` as a module."""
     import importlib.util
@@ -629,362 +217,217 @@ def load_tool(name: str):
     return mod
 
 
-def kernel_d_phase(ds, pairs, many) -> dict:
-    """Kernel D against its plain twin and against the kernel it replaced
-    (``tools/match_parent.cu``, built here) on the pairs' (P, K) templates,
-    under the FRR gates, the FAR gates and the cascade screen's parameters,
-    and once more with validity scattered over the slots, some pairs without
-    a valid B slot and two hypotheses per pair that put an A minutia onto
-    the point the invalid B slots are displaced to (the kernel skips
-    invalid B slots, and there one of them is the nearest neighbour):
-    counts equal to both, scores within ``D_ATOL`` of the twin. Then its
-    time at the FRR gates beside the twin's, the parent's and the bound, at
-    the screen's H, and on the ``many`` pairs of a 4096 chunk; and the
-    device operations one wrapper call launches, before and after."""
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
-        cuda_match as cm)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams, _apply_rigid, _pair_stats, sample_hypotheses)
-    tool = load_tool("match_variants")
-    parent, parent_regs, _ = tool.build_parent()
-    print(f"  parent kernel built: ptxas: {parent_regs}")
-    frr = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
-    cases = {
-        f"FRR gates, H={H_FULL}": frr,
-        f"FAR gates, H={H_FULL}": MatchParams(ransac_iter=H_FULL, **FAR_GATES),
-        f"screen, H={SCREEN_ITERS} of {H_FULL}": frr._replace(
-            ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
-            min_inliers=frr.min_inliers - 2),
-    }
-
-    def call_args(prs, p, scattered=False):
-        a, b = gather_pairs(ds, prs)
-        if scattered:
-            g = torch.Generator(device="cpu").manual_seed(7)
-            keep = lambda v: v & (torch.rand(v.shape, generator=g)
-                                  < 0.7).to(v.device)
-            a, b = a._replace(valid=keep(a.valid)), b._replace(valid=keep(b.valid))
-            b.valid[::16] = False
-        wa, wb, _, _, possible, _ = _pair_stats(a, b)
-        theta, t, cand = sample_hypotheses(a, b, wa, wb, p)
-        if scattered:
-            spot = torch.tensor([-1e6 + 3.0, -1e6 - 2.0], device=t.device)
-            for h, i in ((-1, 0), (-2, 1)):
-                t[:, h] = spot - _apply_rigid(a.xy[:, i], theta[:, h], 0.0)
-        return (a, b, wa, wb, theta, t, cand, possible, p)
-
-    err, err_parent, timed = 0.0, 0.0, {}
-    for name, p in (*cases.items(), ("scattered validity, FRR gates", frr)):
-        args = call_args(pairs, p, scattered=name.startswith("scattered"))
-        sk, ck = cm.hypothesis_scores_cuda(*args)
-        sp, cp = cm.hypothesis_scores_plain(*args)
-        so, co = tool.parent_scores(parent, *args)
-        torch.cuda.synchronize()
-        bad, bad_parent = int((ck != cp).sum()), int((ck != co).sum())
-        e, e_parent = float((sk - sp).abs().max()), float((sk - so).abs().max())
-        print(f"  {name}: P={sk.shape[0]} H={sk.shape[1]}: count mismatches "
-              f"{bad} / {ck.numel()} against the twin, {bad_parent} against "
-              f"the parent kernel; max|ds| {e:.3g} against the twin, "
-              f"{e_parent:.3g} against the parent; scores > 0 "
-              f"{int((sk > 0).sum())}")
-        if bad or e > D_ATOL or not torch.isfinite(sk).all():
-            fail(f"kernel D differs from its plain twin ({name})")
-        if bad_parent:
-            fail(f"kernel D's counts differ from the parent kernel's ({name})")
-        if int((sk > 0).sum()) == 0:
-            fail(f"kernel D comparison is trivial ({name}): no score > 0")
-        err, err_parent = max(err, e), max(err_parent, e_parent)
-        timed[name] = args
-    frr_args, _, screen_args, _ = timed.values()
-    ms = time_ms(lambda: cm.hypothesis_scores_cuda(*frr_args), 20)
-    plain_ms = time_ms(lambda: cm.hypothesis_scores_plain(*frr_args), 3)
-    parent_ms = time_ms(lambda: tool.parent_scores(parent, *frr_args), 20)
-    # the matcher's tensors (x, y, orientation, type, weight, valid per
-    # minutia of A and B; theta, tx, ty, has_cand per hypothesis;
-    # `possible`) and both outputs; about 10 float operations per distance
-    # from a transformed valid A minutia to a valid B minutia (the invalid
-    # slots of a template share one point, so they need one distance, not
-    # one each: the count is what these templates need, not K * K)
-    def d_bound(args):
-        a, b, theta = args[0], args[1], args[4]
-        (pn, kk), h = a.valid.shape, theta.shape[1]
-        dists = float((a.valid.sum(dim=1) * b.valid.sum(dim=1)).sum()) * h
-        return bound(pn * (2 * kk * 21 + 4 * (4 * h + 1 + 2 * h)),
-                     10.0 * dists)
-
-    pn = frr_args[0].valid.shape[0]
-    b_ms, b_by = d_bound(frr_args)
-    valid = torch.cat([frr_args[0].valid, frr_args[1].valid]).sum(dim=1)
-    print(f"  valid minutiae per template of these pairs: min "
-          f"{int(valid.min())}, mean {float(valid.float().mean()):.1f}, max "
-          f"{int(valid.max())} of {frr_args[0].valid.shape[1]} slots")
-    print(f"  time per call (P={pn}, H={H_FULL}, K=64): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, parent kernel with its staging "
-          f"{parent_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    ops_new = profile_ops(lambda: cm.hypothesis_scores_cuda(*frr_args))
-    ops_old = profile_ops(lambda: tool.parent_scores(parent, *frr_args))
-    print(f"  device ops of one wrapper call: {len(ops_new)} "
-          f"({top_ops(ops_new, 3)}); the parent's wrapper: {len(ops_old)}")
-    # at the screen's H a call is shorter than the host takes to launch it,
-    # so back-to-back calls time the host; the device time is the profiler's
-    s_ms = device_ms(profile_ops(
-        lambda: cm.hypothesis_scores_cuda(*screen_args)))
-    s_parent = device_ms(profile_ops(
-        lambda: tool.parent_scores(parent, *screen_args)))
-    s_host = time_ms(lambda: cm.hypothesis_scores_cuda(*screen_args), 20)
-    if s_ms == 0.0:
-        print("  torch.profiler shows no device operation for the screen's "
-              "call: its back-to-back time stands in")
-        s_ms = s_host
-    s_bound = d_bound(screen_args)
-    print(f"  device time of one call (P={pn}, H={SCREEN_ITERS}): kernel "
-          f"{s_ms:.4f} ms, parent with its staging {s_parent:.4f} ms, bound "
-          f"{s_bound[0]:.4f} ms ({s_bound[1]}); back-to-back calls "
-          f"{s_host:.4f} ms each")
-    big = call_args(many, frr)
-    big_ms = time_ms(lambda: cm.hypothesis_scores_cuda(*big), 10)
-    big_parent = time_ms(lambda: tool.parent_scores(parent, *big), 10)
-    big_bound = d_bound(big)
-    same = int((cm.hypothesis_scores_cuda(*big)[1]
-                != tool.parent_scores(parent, *big)[1]).sum())
-    print(f"  time per call (P={len(many)}, H={H_FULL}): kernel {big_ms:.4f} "
-          f"ms, parent {big_parent:.4f} ms, bound {big_bound[0]:.4f} ms "
-          f"({big_bound[1]}); count mismatches against the parent {same}")
-    if same:
-        fail("kernel D's counts differ from the parent kernel's at 4096 pairs")
-    for what, t_ms, t_bound in (("H=300", ms, b_ms), ("H=32", s_ms, s_bound[0]),
-                                ("P=4096", big_ms, big_bound[0])):
-        if t_ms < t_bound:
-            fail(f"kernel D ({what}) timed under its bound")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, device_ops_per_call=len(ops_new),
-                parent_ms=parent_ms, max_abs_diff_parent=err_parent)
-
-
-IDENT_SHAPE = (1024, 300, 64)   # P, H, K of an identify call (nist_sd4)
-
-
-def kernel_h_phase(dev) -> dict:
-    """Kernel H (the finish) against its plain twin at the identification
-    shape: one probe against 1,024 gallery templates of ``users_gallery``
-    (its mate among them), the port's MatchParams, through the real
-    path's statistics, sampling and kernel D. Counts and ratios equal,
-    scores, angles and translations within ``tools/finish_check.py``'s
-    1e-6 (a float64 sum's order); then ms a call of
-    the kernel (back to back, and its device time under the profiler) and
-    of the plain finish, the device operations and ``kernel.finish``
-    launches of one ``match_pairs_batch`` call, and H's bound by
-    ``cudabench/work.py``'s peaks (each input read once, each output written
-    once; 10 operations a distance the finish needs: two passes of each
-    valid A slot over the valid B slots of a scored pair, one pass of each
-    inlier over the valid A slots)."""
+def kernel_table(dev, st) -> list:
+    """One row a kernel call at the main path's shapes (``st``: the stage
+    inputs of ``tests/torch_card.py``, batch 128 of 320x256; D at P=512,
+    H=300, K=64 on the card tests' gallery; H and I at an identification
+    call, P=1,024 (I also 4,050), H=300, K=64), for ``PERF.md``'s kernel
+    table: ms a call of the kernel by CUDA events around back-to-back
+    calls, its device time and device operations a call under
+    ``cudabench.tracing.profiled``, its plain twin's ms, and the bound:
+    ``cudabench.work.least_seconds`` of the call's bytes (each input read
+    once, each output written once) and operations, by whichever of the two
+    takes longer at the card's peaks. The device time is an estimate: the
+    profile's window may take in an operation beside the calls or lose
+    some of theirs, and where it holds fewer operations than calls the row
+    has none (null). Each row also holds the kernel to its twin once, under
+    the card tests' own tolerances (max_abs_err: the largest difference of
+    any output). Fails where a kernel differs from its twin beyond them,
+    and where the kernel's ms reads under its bound: such a bound is
+    miscounted."""
     import numpy as np
     import torch
+    from torch_card import (
+        CLAHE_ATOL, CLAHE_MAX_OFF, D_ATOL, F_MAX_MISMATCH, FRR_GATES, H_FULL,
+        NLM_ATOL, NLM_MAX_OFF, hypothesis_args, matcher_gallery)
     from cudabench import work
-    from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
+    from cudabench.tracing import profiled
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        minutiae_from_numpy)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
         MatchParams, _finish_match)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
-        minutiae_from_numpy)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
+        denoise)
     from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
         users_gallery)
-    tool = load_tool("finish_check")
-    pn, h, k = IDENT_SHAPE
-    gal = users_gallery(pn, 2, k=k, seed=11)
-    a_np = {f: np.repeat(v[1:2], pn, axis=0) for f, v in gal.items()}
-    b_np = {f: v[0::2] for f, v in gal.items()}
-    p = MatchParams(ransac_iter=h)
-    args = tool.finish_inputs(a_np, b_np, p, dev, special=False)
-    r = tool.compare(args)
-    print(f"  identification shape P={pn} H={h} K={k}: {r}")
-    if not tool.ok(r) or r["scored"] == 0:
-        fail("kernel H differs from the plain finish at the identification "
-             "shape, or nothing scored")
-    ms = time_ms(lambda: cm.finish_match_cuda(*args), 50)
-    plain_ms = time_ms(lambda: _finish_match(*args), 5)
-    # a profile of one 20-us launch has come back empty: profile 20 calls
-    calls = 20
-    ops = profile_ops(lambda: [cm.finish_match_cuda(*args)
-                               for _ in range(calls)])
-    dev_ms = device_ms(ops) / max(len(ops), 1)
-    a, b = minutiae_from_numpy(a_np, dev), minutiae_from_numpy(b_np, dev)
-    before = build.launches()["finish"]
-    cm.match_pairs_batch(a, b, p)
-    torch.cuda.synchronize()
-    per_call = build.launches()["finish"] - before
-    call_ops = profile_ops(lambda: cm.match_pairs_batch(a, b, p))
-    plain_ops = profile_ops(lambda: _finish_match(*args))
-    want = _finish_match(*args)
-    scored = want.final_score > 0
-    na, nb = args[5], args[6]
-    dists = float((2 * na * nb + want.n_inliers * na)[scored].sum())
-    nbytes = (pn * (2 * k * (8 + 4 + 4 + 1) + 2 * k * 4 + 4 * 3 + 1)
-              + pn * h * (4 + 4 + 4 + 8) + pn * (4 + 4 + 4 + 4 + 8))
-    ops_n = 10.0 * dists + 3.0 * pn * h
-    b_s = work.least_seconds(nbytes, ops_n)
-    b_ms, b_by = b_s * 1e3, ("bytes" if nbytes / work.PEAK_BYTES_S
-                             >= ops_n / work.PEAK_OPS_S else "operations")
-    print(f"  time per call: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
-          f"device time ({len(ops)} device ops in {calls} calls: "
-          f"{top_ops(ops, 2)}); plain "
-          f"{plain_ms:.4f} ms ({len(plain_ops)} device ops); bound "
-          f"{b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops_n:.4g} operations, "
-          f"{int(scored.sum())} pairs scored)")
-    print(f"  one match_pairs_batch call: kernel.finish launches {per_call}, "
-          f"{len(call_ops)} device ops ({top_ops(call_ops, 3)})")
-    if per_call != 1:
-        fail("kernel H: not one launch a match_pairs_batch call")
-    if dev_ms and dev_ms < b_ms:
-        fail("kernel H timed under its bound")
-    return dict(err=max(r["final_score_max"], r["theta_max"], r["t_max"]),
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, device_ops_per_call=len(ops) / calls,
-                plain_device_ops=len(plain_ops),
-                match_call_device_ops=len(call_ops), launches=per_call)
+    npx = float(st.x.numel())
+    finish_tool, sample_tool = load_tool("finish_check"), load_tool("sample_check")
 
+    # the card tests' rules: (kernel's output, twin's output) ->
+    # (max |d| over the outputs, within the tests' limits)
+    outs = lambda r: [r] if isinstance(r, torch.Tensor) else list(r)
 
-I_PAIRS = (1024, 4050)   # P of an identify call (nist_sd4) and of the x4 cell's
+    def max_err(got, want) -> float:
+        return max(float((x.double() - y.double()).abs().max()) if x.numel()
+                   else 0.0 for x, y in zip(outs(got), outs(want)))
 
+    def exact(got, want):       # masks, labels, skeletons, counts
+        return max_err(got, want), all(
+            x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(outs(got), outs(want)))
 
-def kernel_i_phase(dev) -> dict:
-    """Kernel I (the per-pair statistics and the sampling) against its plain
-    twin, ``_pair_stats`` then ``sample_hypotheses`` on the card, at H=300,
-    K=64 and P=1,024 (an identification call: one probe against 1,024
-    templates of ``users_gallery``, its mate among them) and P=4,050 (a call
-    of the x4 cell): every output bit-equal (``tools/sample_check.py``'s
-    comparison); then ms a call of the kernel (back to back, and its device
-    time under the profiler) and of the plain twin with their device
-    operations, the ``kernel.sample`` launches of one ``match_pairs_batch``
-    call, and I's bound by ``cudabench/work.py``'s peaks: each input read
-    once (seven (P, K) planes of A and of B, the (H, 2) uniforms), each
-    output written once; its operations (three K-leaf scans and the
-    statistics a pair, a cos, a sin and about 20 more a hypothesis) are far
-    under the bytes' time."""
-    import numpy as np
-    import torch
-    from cudabench import work
-    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
-        minutiae_from_numpy)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
-        cuda_match as cm)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-        users_gallery)
-    tool = load_tool("sample_check")
-    _, h, k = IDENT_SHAPE
-    p = MatchParams(ransac_iter=h)
-    out = {}
-    for pn in I_PAIRS:
+    def near(atol, max_off):    # A and E: max_off of the pixels off by > 1e-6
+        def rule(got, want):
+            d = (got - want).abs()
+            return float(d.max()), (bool(torch.isfinite(got).all())
+                                    and float(d.max()) <= atol
+                                    and float((d > 1e-6).float().mean())
+                                    <= max_off)
+        return rule
+
+    def mismatch(got, want):    # F
+        return max_err(got, want), \
+            int((got != want).sum()) <= F_MAX_MISMATCH * got.numel()
+
+    def scores(got, want):      # D: counts exact, scores within D_ATOL
+        (sk, ck), (sp, cp) = got, want
+        err = float((sk - sp).abs().max())
+        return err, (torch.equal(ck, cp) and bool(torch.isfinite(sk).all())
+                     and err <= D_ATOL)
+
+    def tool(judge):            # H and I: their card tests' comparison
+        return lambda got, want: (max_err(got, want), judge())
+
+    # a component filter: mask in, mask out, about 10 operations a pixel a
+    # label pass (neighbour tests, the union, the tally, the keep test)
+    one_pass = (2.0 * npx, 10.0 * npx)
+
+    def cc(name, m, mode, conn, cost, **kw):
+        return (f"B {name}", "cc",
+                lambda: cuda_cc.cc_filter_cuda(m, mode, conn, **kw),
+                lambda: cuda_cc.cc_filter_plain(m, mode, conn, **kw), exact,
+                cost)
+
+    clahe_in = st.clahe_in[0][1]
+    rows = [
+        # image in, image out; per pixel the bin, four LUT reads and the blend
+        ("A CLAHE, clip 2.5", "clahe",
+         lambda: cuda_kernels.clahe_cuda(clahe_in, 2.5, 8),
+         lambda: cuda_kernels.clahe_plain(clahe_in, 2.5, 8),
+         near(CLAHE_ATOL, CLAHE_MAX_OFF), (8.0 * npx, 15.0 * npx)),
+        cc("clean(64, 80) conn1", st.smooth, "clean", 1,
+           (2.0 * npx, 20.0 * npx), min_size=64, max_size=80),
+        cc("remove_small(80) conn1", st.fg, "remove_small", 1, one_pass,
+           min_size=80),
+        cc("fill_holes(150) conn1", st.kept, "fill_holes", 1, one_pass,
+           max_size=150),
+        cc("reach conn2", st.opened, "reach", 2, one_pass, marker=st.marker),
+        cc("largest conn2", st.smooth, "largest", 2, one_pass),
+        # cc_label writes int32 labels instead of a byte mask
+        ("B cc_label conn2", "cc",
+         lambda: cuda_cc.cc_label_cuda(st.smooth, 2),
+         lambda: cuda_cc.cc_label_plain(st.smooth, 2), exact,
+         (5.0 * npx, 10.0 * npx)),
+        ("C thin, max_iters 128, prune", "thin",
+         lambda: cuda_thin.zs_thin_cuda(st.gated, 128, True),
+         lambda: cuda_thin.zs_thin_plain(st.gated, 128, True), exact,
+         (2.0 * npx, thinning_work(st.gated))),
+        ("E NLM, bf16", "nlm",
+         lambda: cuda_nlm.nlm_denoise_cuda(st.res.normalized),
+         lambda: denoise.nlm_denoise_plain(st.res.normalized),
+         near(NLM_ATOL, NLM_MAX_OFF), work.nlm_work(*st.x.shape)),
+        # float image in, byte mask out; per pixel two separable 25-tap box
+        # means (x and x*x: 4 passes of 25 multiplies and 24 adds), the
+        # threshold, and its share of the patch's histogram and Otsu scan
+        ("F binarize front", "binarize",
+         lambda: cuda_binarize.binarize_foreground_cuda(st.img_eq),
+         lambda: cuda_binarize.binarize_foreground_plain(st.img_eq),
+         mismatch, (5.0 * npx, 215.0 * npx)),
+        ("F Sauvola alone", "binarize",
+         lambda: cuda_binarize.sauvola_cuda(st.img_eq),
+         lambda: cuda_binarize.sauvola_plain(st.img_eq), mismatch,
+         (5.0 * npx, 212.0 * npx)),
+        ("G open -> erode -> reconstruct", "morph",
+         lambda: cuda_morph.open_erode_reconstruct_cuda(st.cleaned),
+         lambda: cuda_morph.open_erode_reconstruct_plain(st.cleaned),
+         exact, (2.0 * npx, opening_work(st.cleaned))),
+    ]
+
+    ds, pairs, _ = matcher_gallery(dev)
+    d_args = hypothesis_args(ds, pairs,
+                             MatchParams(ransac_iter=H_FULL, **FRR_GATES))
+    rows.append((f"D hypothesis scores, P={len(pairs)}, H={H_FULL}", "match",
+                 lambda: cm.hypothesis_scores_cuda(*d_args),
+                 lambda: cm.hypothesis_scores_plain(*d_args), scores,
+                 work.hypothesis_work(d_args[0].valid, d_args[1].valid, H_FULL)))
+
+    # H and I: one probe against P templates of ``users_gallery``, its mate
+    # among them, through the real path's statistics, sampling and kernel D
+    k, p = 64, MatchParams(ransac_iter=H_FULL)
+    for pn in (1024, 4050):
         gal = users_gallery(pn, 2, k=k, seed=11)
         a_np = {f: np.repeat(v[1:2], pn, axis=0) for f, v in gal.items()}
         b_np = {f: v[0::2] for f, v in gal.items()}
+        if pn == 1024:
+            h_args = finish_tool.finish_inputs(a_np, b_np, p, dev, special=False)
+            want = _finish_match(*h_args)
+            na, nb = h_args[5], h_args[6]
+            scored = want.final_score > 0
+            # 10 operations a distance the finish needs: two passes of each
+            # valid A slot over the valid B slots of a scored pair, one pass
+            # of each inlier over the valid A slots
+            dists = float((2 * na * nb + want.n_inliers * na)[scored].sum())
+            rows.append((f"H finish, P={pn}", "finish",
+                         lambda: cm.finish_match_cuda(*h_args),
+                         lambda: _finish_match(*h_args),
+                         tool(lambda: finish_tool.ok(finish_tool.compare(h_args))),
+                         (pn * (2 * k * (8 + 4 + 4 + 1) + 2 * k * 4 + 4 * 3 + 1)
+                          + pn * H_FULL * (4 + 4 + 4 + 8)
+                          + pn * (4 + 4 + 4 + 4 + 8),
+                          10.0 * dists + 3.0 * pn * H_FULL)))
         a, b = minutiae_from_numpy(a_np, dev), minutiae_from_numpy(b_np, dev)
-        r = tool.compare(a, b, p)
-        print(f"  P={pn} H={h} K={k}: {r}")
-        if not tool.ok(r):
-            fail(f"kernel I differs from its plain twin at P={pn}")
-        ms = time_ms(lambda: cm.sample_pairs_cuda(a, b, p), 50)
-        plain_ms = time_ms(lambda: tool.plain(a, b, p), 5)
-        calls = 20
-        ops = profile_ops(lambda: [cm.sample_pairs_cuda(a, b, p)
-                                   for _ in range(calls)])
-        dev_ms = device_ms(ops) / max(len(ops), 1)
-        plain_ops = profile_ops(lambda: tool.plain(a, b, p))
-        before = build.launches()["sample"]
-        cm.match_pairs_batch(a, b, p)
-        torch.cuda.synchronize()
-        per_call = build.launches()["sample"] - before
-        nbytes = (pn * (2 * k * (8 + 4 + 4 * 4 + 1) + 2 * k * 4 + 3 * 4 + 1
-                        + h * (4 + 8 + 4)) + h * 8)
-        ops_n = pn * (3 * k + 2 * k * 20) + pn * h * 60.0
-        b_s = work.least_seconds(nbytes, ops_n)
-        b_ms, b_by = b_s * 1e3, ("bytes" if nbytes / work.PEAK_BYTES_S
-                                 >= ops_n / work.PEAK_OPS_S else "operations")
-        print(f"  P={pn}: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
-              f"device time ({len(ops)} device ops in {calls} calls: "
-              f"{top_ops(ops, 2)}); plain {plain_ms:.4f} ms "
-              f"({len(plain_ops)} device ops: {top_ops(plain_ops, 3)}); "
-              f"bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops_n:.4g} "
-              f"operations), {b_ms / dev_ms if dev_ms else 0.0:.1%} of it "
-              f"by device time; "
-              f"kernel.sample launches of one match_pairs_batch call "
-              f"{per_call}")
-        if per_call != 1:
-            fail("kernel I: not one launch a match_pairs_batch call")
-        if dev_ms and dev_ms < b_ms:
-            fail("kernel I timed under its bound")
-        out[pn] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by,
-                       device_ops_per_call=len(ops) / calls,
-                       plain_device_ops=len(plain_ops), launches=per_call)
-    first = out[I_PAIRS[0]]
-    return dict(first, err=0.0, by_pairs=out)
+        # seven (P, K) planes of A and of B and the (H, 2) uniforms in, the
+        # statistics and hypotheses out; three K-leaf scans and the
+        # statistics a pair, a cos, a sin and about 20 more a hypothesis
+        rows.append((f"I statistics and sampling, P={pn}", "sample",
+                     lambda a=a, b=b: cm.sample_pairs_cuda(a, b, p),
+                     lambda a=a, b=b: sample_tool.plain(a, b, p),
+                     tool(lambda a=a, b=b: sample_tool.ok(
+                         sample_tool.compare(a, b, p))),
+                     (pn * (2 * k * (8 + 4 + 4 * 4 + 1) + 2 * k * 4 + 3 * 4 + 1
+                            + H_FULL * (4 + 8 + 4)) + H_FULL * 8,
+                      pn * (3 * k + 2 * k * 20) + pn * H_FULL * 60.0)))
+
+    calls, out = 10, []
+    for name, counter, kern, twin, rule, (nbytes, ops) in rows:
+        err, within = rule(kern(), twin())
+        ms, plain_ms = time_ms(kern, 20), time_ms(twin, 2)
+        with profiled(dev, []) as prof:
+            for _ in range(calls):
+                kern()
+        dev_ops = prof.ops_within(*prof.window)
+        dev_ms = (sum(e - s for _, s, e in dev_ops) / calls / 1e3
+                  if len(dev_ops) >= calls else None)
+        b_ms = work.least_seconds(nbytes, ops) * 1e3
+        by = ("bytes" if work.least_seconds(nbytes, 0.0)
+              >= work.least_seconds(0.0, ops) else "operations")
+        dev_txt = ("no device time (the profile lost operations)"
+                   if dev_ms is None else f"about {dev_ms:.4f} ms of device time")
+        print(f"  {name}: kernel {ms:.4f} ms back to back (bound {b_ms:.4f} "
+              f"ms by {by}, {b_ms / ms:.1%}); {dev_txt} in "
+              f"{len(dev_ops) / calls:g} device ops a call; twin "
+              f"{plain_ms:.4f} ms; max|d| from the twin {err:.3g}")
+        if not within:
+            fail(f"{name}: the kernel differs from its twin beyond the card "
+                 f"tests' tolerances (max|d| {err:.3g})")
+        if not (math.isfinite(ms) and math.isfinite(plain_ms)):
+            fail(f"{name}: a time is not finite")
+        if ms < b_ms:
+            fail(f"{name}: {ms:.4f} ms reads under its bound {b_ms:.4f} ms; "
+                 "the bound is miscounted")
+        src, replaces = KERNEL_SITES[counter]
+        out.append({"name": name, "counter": counter,
+                    "source": f"{PKG}/csrc/{src}", "replaces": replaces,
+                    "max_abs_err": err, "ms": ms, "device_ms_estimate": dev_ms,
+                    "device_ops_per_call": len(dev_ops) / calls,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by})
+    return out
 
 
-def chunk_profile(ds, pairs, reps: int = 5) -> None:
-    """Where one chunk's time goes. For the full pass's steps (the per-pair
-    stats and the sampling, kernel I; kernel D's wrapper call; the finish,
-    kernel H), the
-    whole pass and the cascade screen, on the same (P, K) templates:
-
-    - host ms: the host clock around one call, synchronized before and
-      after it, mean of ``reps`` calls after a warm-up. The steps are each
-      synchronized, so their sum exceeds the whole pass by the overlap of
-      one step's device work with the next step's launches;
-    - device ms: under ``torch.profiler``, the summed durations of the
-      device operations (kernels, copies, fills) one call issues, and
-      their count;
-    - device busy share: the whole pass's device ms over its host ms."""
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
-        cuda_match as cm)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams)
-    a, b = gather_pairs(ds, pairs)
-    p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
-    screen_p = p._replace(ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
-                          min_inliers=max(3, p.min_inliers - 2))
-    st = {}
-
-    def sample():
-        st["s"] = cm.sample_pairs_cuda(a, b, p)
-
-    def score():
-        wa, wb, _, _, possible, _, theta, t, cand = st["s"]
-        st["scores"] = cm.hypothesis_scores_cuda(a, b, wa, wb, theta, t,
-                                                 cand, possible, p)
-
-    def finish():
-        wa, wb, na, nb, possible, reject, theta, t, _ = st["s"]
-        cm.finish_match_cuda(a, b, wa, wb, possible, na, nb, reject,
-                             *st["scores"], theta, t, p)
-
-    steps = {"kernel I": sample, "kernel D": score, "kernel H": finish,
-             "whole pass": lambda: cm.match_pairs_batch(a, b, p),
-             "screen": lambda: cm.screen_promote_batch(a, b, screen_p)}
-    host, device, whole = {}, {}, []
-    for name, fn in steps.items():
-        fn()
-        host[name] = sum(wall_s(fn)[1] for _ in range(reps)) / reps * 1e3
-        ops = profile_ops(fn)
-        device[name] = (device_ms(ops), len(ops))
-        if name == "whole pass":
-            whole = ops
-    n = len(pairs)
-    part = ("kernel I", "kernel D", "kernel H")
-    print(f"  chunk {n}, host ms per call, synchronized: " + ", ".join(
-        f"{k} {host[k]:.3f}" for k in steps)
-        + f"; sum of the three steps {sum(host[k] for k in part):.3f}")
-    print(f"  chunk {n}, device ms (device ops) under torch.profiler: "
-          + ", ".join(f"{k} {device[k][0]:.3f} ({device[k][1]})"
-                      for k in steps)
-          + f"; whole pass busy {device['whole pass'][0] / host['whole pass']:.1%}"
-          f" of its host ms")
-    print(f"  chunk {n}, whole pass, top device ops: " + top_ops(whole))
+# --- the matcher ------------------------------------------------------------
 
 
 def protocol(ds, frr_p, far_p, cascade: bool, peers: int, seed: int,
@@ -992,6 +435,7 @@ def protocol(ds, frr_p, far_p, cascade: bool, peers: int, seed: int,
     """The FRR/FAR/EER protocol of the JAX package's ``runner.main``: every
     genuine pair under the FRR gates, the sampled impostor pairs under the
     FAR gates, 50-point threshold sweeps, interpolated EER."""
+    from torch_card import CHUNK, SCREEN_ITERS
     from multimodal_biometric_fingerprints_palms_tpu_torch.evaluation import (
         compute_eer, evaluate_far_across_thresholds,
         evaluate_frr_across_thresholds)
@@ -1045,6 +489,7 @@ def expected_chunks(ds, pairs, params, cascade: bool) -> tuple[int, int]:
     """Kernel-D and kernel-H launches ``match_pair_indices`` makes for
     ``pairs``: D once a screen chunk and once a full-pass chunk of the
     promoted pairs, H once a full-pass chunk. Kernel I launches as D does."""
+    from torch_card import CHUNK, SCREEN_ITERS
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
         screen_pair_indices)
     chunks = lambda n: -(-n // CHUNK)
@@ -1056,11 +501,11 @@ def expected_chunks(ds, pairs, params, cascade: bool) -> tuple[int, int]:
     return chunks(len(pairs)) + full, full
 
 
-def golden_phase(dev, build) -> int:
+def golden_phase(dev, build) -> None:
     """The reference golden's protocol on the 136 fixture templates, cascade
-    off and on. Returns kernel D's launches in the cascade run (the
-    production route)."""
+    off and on, each run's launches counted."""
     import numpy as np
+    from torch_card import PARITY_FULL
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
         load_dataset)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
@@ -1109,7 +554,6 @@ def golden_phase(dev, build) -> int:
                       f"{runs[False][kind][j]:.6f} -> {runs[True][kind][j]:.6f}")
         print("  the cascade changed the curves; its run is held to the "
               "golden's tolerances above")
-    return launches[True]["match"]
 
 
 def blob_protocol_phase(dev, run_path, build) -> None:
@@ -1118,6 +562,7 @@ def blob_protocol_phase(dev, run_path, build) -> None:
     round trip), under the production matching configuration."""
     import numpy as np
     import torch
+    from torch_card import FAR_GATES, FRR_GATES
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
         load_dataset)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
@@ -1160,60 +605,13 @@ def blob_protocol_phase(dev, run_path, build) -> None:
              f"EER {run['eer']:.4f} (<= 0.13)")
 
 
-def matcher_phases(dev, build, card, blob_templates, run_path) -> dict:
-    import numpy as np
-    import torch
-    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
-        MinutiaeSet)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.dataset import (
-        MinutiaeDataset, genuine_pairs, impostor_pairs, load_dataset)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
-        match_pair_indices)
 
-    # 1. kernel D at production width, on the 136 fixture templates and the
-    # enhance path's 16 blob-print templates in one gallery
-    print("kernel D (RANSAC hypothesis scoring):")
-    fix = load_dataset(PARITY_FULL, max_per_user=4, device=dev)
-    nfix = len(fix.matrices)
-    gds = MinutiaeDataset([], np.zeros(0), np.zeros(0), [], MinutiaeSet(
-        *(torch.cat([f, bt]) for f, bt in zip(fix.stacked, blob_templates))))
-    nblob = blob_templates.valid.shape[0]
-    fix_pairs = np.concatenate([genuine_pairs(fix), impostor_pairs(fix)])
-    blob_pairs = np.asarray([(nfix + i, nfix + j) for i in range(nblob)
-                             for j in range(i + 1, nblob)], np.int32)
-    d_pairs = np.concatenate([blob_pairs, fix_pairs])[:CHUNK]
-    many = fix_pairs[:max(RATE_CHUNKS)]
-    d = kernel_d_phase(gds, d_pairs, many)
-    print("kernel H (the finish):")
-    d["h"] = kernel_h_phase(dev)
-    print("kernel I (the per-pair statistics and the sampling):")
-    d["i"] = kernel_i_phase(dev)
-
-    # full-pass rate at chunk 512 and 4096 (one chunk each, synchronized),
-    # and where each chunk's time goes
-    p = MatchParams(ransac_iter=H_FULL, **FRR_GATES)
-    reps = 3
-    for chunk in RATE_CHUNKS:
-        match_pair_indices(gds, many[:chunk], p, chunk=chunk)
-        _, secs = wall_s(lambda: [match_pair_indices(gds, many[:chunk], p,
-                                                     chunk=chunk)
-                                  for _ in range(reps)])
-        print(f"  full pass, H={H_FULL}, chunk {chunk}: {secs / reps * 1e3:.2f} ms "
-              f"per chunk -> {chunk * reps / secs:.1f} pairs/s on {card}")
-    for chunk in RATE_CHUNKS:
-        chunk_profile(gds, many[:chunk])
-
-    # 2. the golden protocol
+def matcher_phases(dev, build, run_path) -> None:
     print("golden protocol (tests/fixtures/parity_full, RANSAC 300):")
-    d["launches"] = golden_phase(dev, build)
-
-    # 3. enhance -> match
+    golden_phase(dev, build)
     print("enhance -> match (8 users x 2 sessions of blob prints, "
           "production configuration):")
     blob_protocol_phase(dev, run_path, build)
-    return d
 
 
 # --- the Gabor stage, a large frame from a file, the ops off the path ----------
@@ -1889,6 +1287,7 @@ def gallery_phase(dev, build, card, mesh) -> dict:
     kernel D's launches in the cascade sweep."""
     import numpy as np
     import torch
+    from torch_card import CHUNK, D_ATOL, H_FULL, SCREEN_ITERS
     from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
         MinutiaeSet, minutiae_from_numpy)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
@@ -3074,6 +2473,7 @@ def multi_gpu_rank() -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from torch_card import H_FULL, SCREEN_ITERS
     from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
         MinutiaeSet, minutiae_from_numpy)
     from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
@@ -3212,6 +2612,7 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
     outlasts its time limit fails the script. Returns kernel D's launches
     summed over the NCCL ranks."""
     import torch
+    from torch_card import H_FULL
     from multimodal_biometric_fingerprints_palms_tpu_torch import entry
     from multimodal_biometric_fingerprints_palms_tpu_torch.models import (
         SSLModel, seed_weights)
@@ -3302,28 +2703,17 @@ def main() -> None:
         fail("torch.cuda.is_available() is false; this script needs a GPU")
     if not (ROOT / PKG).is_dir() or not GOLDEN.is_file():
         fail(f"{ROOT} is not a checkout of the repository")
-    sys.path.insert(0, str(ROOT))
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
+    import torch_card
+    from torch_card import run_path
     from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
-        cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
-        denoise)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.components import (
-        clean_mask)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.filters import (
-        gaussian_blur)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.histogram import (
-        clahe, otsu_threshold_patchwise, percentile_stretch)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
-        binary_erode, binary_opening)
     from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing import (
-        preprocess_fingerprint, smooth_fingerprint_skeleton)
-    from multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing.enhance import (
-        _quantize_u8)
+        preprocess_fingerprint)
     from multimodal_biometric_fingerprints_palms_tpu_torch.features import (
         extract_minutiae, postprocess_minutiae)
     from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
-        blob_prints, make_batch)
+        blob_prints)
 
     # 1. device
     card = card_line()
@@ -3343,377 +2733,35 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
-    def run_path(x):
-        res = preprocess_fingerprint(x)
-        ms = extract_minutiae(res.skeleton)
-        return res, postprocess_minutiae(ms, res.skeleton)
+    # 3. the kernels timed on the main path's stage inputs (its first run)
+    st = torch_card.stage_inputs(dev)
+    x = st.x
+    print("kernels at the main path's shapes (the card tests hold them to "
+          "their twins):")
+    table = kernel_table(dev, st)
 
-    x = torch.from_numpy(make_batch(BATCH)).to(dev)
-    # warm-up run; its stage outputs are the kernels' real inputs below
-    res, _ = run_path(x)
-    torch.cuda.synchronize()
-
-    # 3. kernels against their plain twins at the main path's shapes
-    # the three CLAHE calls of the path: normalize, segment, binarize
-    clahe_in = [(2.5, _quantize_u8(percentile_stretch(x, 0.5, 99.5))),
-                (2.0, _quantize_u8(res.denoised)),
-                (2.5, _quantize_u8(res.segmented))]
-    clahe_err = 0.0
-    print("kernel A (CLAHE):")
-    variants = load_tool("binarize_clahe_variants")
-    morph_tool = load_tool("morph_variants")
-    with ThreadPoolExecutor(max_workers=3) as pool:     # one nvcc each
-        jobs = (pool.submit(variants.build_parent, "mbfp_clahe"),
-                pool.submit(variants.build_parent, "mbfp_binarize_front"),
-                pool.submit(morph_tool.build_parent))
-        (a_parent, a_regs), (f_parent, f_regs), (g_parent, g_regs) = (
-            job.result() for job in jobs)
-    print("  parent kernels built (tools/clahe_parent.cu, "
-          "tools/binarize_parent.cu, tools/morph_parent.cu): ptxas: "
-          + "; ".join(a_regs + f_regs + g_regs))
-    for clip, inp in clahe_in:
-        a, lut = cuda_kernels.clahe_cuda(inp, clip, 8, return_lut=True)
-        b = cuda_kernels.clahe_plain(inp, clip, 8)
-        lut_bad = int((lut != cuda_kernels.clahe_lut_plain(inp, clip, 8)).sum())
-        old = int((a != variants.run_a(a_parent, True, inp, clip)[0]).sum())
-        torch.cuda.synchronize()
-        d = (a - b).abs()
-        err = float(d.max())
-        off = float((d > 1e-6).float().mean())
-        print(f"  clip {clip}: max|d| {err:.3g}, pixels off {off:.3g}; LUT "
-              f"entries that differ from clahe_lut_plain {lut_bad} / "
-              f"{lut.numel()}; pixels that differ from the parent kernel {old}")
-        if not torch.isfinite(a).all() or err > CLAHE_ATOL or off > CLAHE_MAX_OFF:
-            fail(f"CLAHE clip {clip} outside tolerance")
-        if lut_bad or old:
-            fail(f"CLAHE clip {clip}: LUTs differ from the twin's or the "
-                 "image from the parent kernel's")
-        clahe_err = max(clahe_err, err)
-    inp = clahe_in[0][1]
-    clahe_parent_ms = time_ms(
-        lambda: variants.run_a(a_parent, True, inp, 2.5), 20)
-    clahe_ms = time_ms(lambda: cuda_kernels.clahe_cuda(inp, 2.5, 8), 20)
-    clahe_plain_ms = time_ms(lambda: cuda_kernels.clahe_plain(inp, 2.5, 8), 5)
-    npx = x.numel()
-    # image in, image out; per pixel the bin, four LUT reads and the blend
-    clahe_bound = bound(8.0 * npx, 15.0 * npx)
-    print(f"  time per call: kernel {clahe_ms:.4f} ms, plain {clahe_plain_ms:.4f} ms, "
-          f"parent kernel {clahe_parent_ms:.4f} ms, "
-          f"bound {clahe_bound[0]:.4f} ms ({clahe_bound[1]})")
-    clahe_ops = profile_ops(lambda: cuda_kernels.clahe_cuda(inp, 2.5, 8))
-    print(f"  device ops of one wrapper call: {len(clahe_ops)} "
-          f"({top_ops(clahe_ops, 3)})")
-
-    print("kernel B (CC label + filter):")
-    binary_smooth = smooth_fingerprint_skeleton(res.binary.float())
-    opened = binary_opening(res.binary, 3, shape="ellipse")
-    marker = binary_erode(opened, 3, shape="ellipse")
-    masks = {"mask": res.mask, "binary": res.binary, "smooth": binary_smooth}
-    for conn in (1, 2):
-        for mname, m in masks.items():
-            compare_exact(f"labels conn{conn} {mname}",
-                          lambda: cuda_cc.cc_label_cuda(m, conn),
-                          lambda: cuda_cc.cc_label_plain(m, conn))
-        for mode, kw in (("remove_small", dict(min_size=80)),
-                         ("fill_holes", dict(max_size=150)),
-                         ("clean", dict(min_size=64, max_size=80)),
-                         ("largest", {}),
-                         ("reach", dict(marker=marker))):
-            m = opened if mode == "reach" else binary_smooth
-            compare_exact(f"{mode} conn{conn}",
-                          lambda: cuda_cc.cc_filter_cuda(m, mode, conn, **kw),
-                          lambda: cuda_cc.cc_filter_plain(m, mode, conn, **kw))
-    cc_ms = time_ms(lambda: cuda_cc.cc_filter_cuda(
-        binary_smooth, "clean", 1, min_size=64, max_size=80), 20)
-    cc_plain_ms = time_ms(lambda: cuda_cc.cc_filter_plain(
-        binary_smooth, "clean", 1, min_size=64, max_size=80), 3)
-    # mask in, mask out; per label pass about 10 operations per pixel
-    # (neighbour tests, the union, the tally, the keep test)
-    cc_bound = bound(2.0 * npx, 20.0 * npx)
-    print(f"  time per clean(64, 80) conn1 call: kernel {cc_ms:.4f} ms, "
-          f"plain {cc_plain_ms:.4f} ms, bound {cc_bound[0]:.4f} ms "
-          f"({cc_bound[1]})")
-
-    print("kernel B, adversarial inputs:")
-    kernel_b_adversarial(dev)
-
-    print("kernel C (Zhang-Suen + prune):")
-    gated = clean_mask(binary_smooth, 64, 80, connectivity=1) & (
-        gaussian_blur(res.reliability, 2.0) > 0.1)
-    for prune in (False, True):
-        compare_exact(f"thin prune={prune}",
-                      lambda: cuda_thin.zs_thin_cuda(gated, 128, prune),
-                      lambda: cuda_thin.zs_thin_plain(gated, 128, prune))
-    thin_ms = time_ms(lambda: cuda_thin.zs_thin_cuda(gated, 128, True), 20)
-    thin_plain_ms = time_ms(lambda: cuda_thin.zs_thin_plain(gated, 128, True), 3)
-    thin_bound = bound(2.0 * npx, thinning_work(gated))
-    thin_dev = device_ms(profile_ops(
-        lambda: cuda_thin.zs_thin_cuda(gated, 128, True)))
-    print(f"  time per call: kernel {thin_ms:.4f} ms (device time of one call "
-          f"{thin_dev:.4f} ms), plain {thin_plain_ms:.4f} ms, "
-          f"bound {thin_bound[0]:.4f} ms ({thin_bound[1]})")
-    print("kernel C, other frames and masks:")
-    kernel_c_frames(dev, gated)
-    print("kernel C, frames beyond one block (the device-memory form):")
-    c_large = kernel_c_large_frames(dev, gated)
-
-    print("kernel E (non-local means):")
-    nlm_err = 0.0
-    for prec, nb in (("bf16", BATCH), ("f32", 16)):
-        inp = res.normalized[:nb]
-        a = cuda_nlm.nlm_denoise_cuda(inp, precision=prec)
-        b = denoise.nlm_denoise_plain(inp, precision=prec)
-        torch.cuda.synchronize()
-        d = (a - b).abs()
-        err = float(d.max())
-        off = int((d > 1e-6).sum())
-        print(f"  {prec}, {nb} images: max|d| {err:.3g}, pixels off by > 1e-6 "
-              f"{off} / {d.numel()}, pixels that differ {int((d > 0).sum())}")
-        if not torch.isfinite(a).all() or err > NLM_ATOL \
-                or off > NLM_MAX_OFF * d.numel():
-            fail(f"NLM {prec} outside tolerance")
-        nlm_err = max(nlm_err, err)
-    nlm_ms = time_ms(lambda: cuda_nlm.nlm_denoise_cuda(res.normalized), 5)
-    nlm_plain_ms = time_ms(lambda: denoise.nlm_denoise_plain(res.normalized), 2)
-    # image in, image out; per pixel and offset: difference, square, 6 + 6
-    # template adds, scale, exp, weighted sample, two accumulations
-    nlm_bound = bound(8.0 * npx, 20.0 * 441 * npx)
-    print(f"  time per call: kernel {nlm_ms:.4f} ms, plain {nlm_plain_ms:.4f} ms, "
-          f"bound {nlm_bound[0]:.4f} ms ({nlm_bound[1]})")
-
-    print("kernel E, small and ragged frames:")
-    kernel_e_small_frames(dev)
-
-    print("kernel F (Sauvola + patch Otsu):")
-    img_eq = clahe(_quantize_u8(res.segmented), clip_limit=2.5, grid=8)
-    fg = cuda_binarize.binarize_foreground_cuda(img_eq)
-    fg_plain = cuda_binarize.binarize_foreground_plain(img_eq)
-    fg_cpu = cuda_binarize.binarize_foreground_plain(img_eq[:4].cpu())
-    torch.cuda.synchronize()
-    f_bad = int((fg != fg_plain).sum())
-    f_bad_cpu = int((fg[:4].cpu() != fg_cpu).sum())
-    print(f"  hybrid: mismatches {f_bad} / {fg.numel()} against the twin on the "
-          f"card, {f_bad_cpu} / {fg_cpu.numel()} against the twin on the CPU "
-          f"(4 images); foreground {int(fg.sum())}")
-    if f_bad > F_MAX_MISMATCH * fg.numel() \
-            or f_bad_cpu > F_MAX_MISMATCH * fg_cpu.numel():
-        fail("kernel F differs from its plain version beyond the bound")
-    if not 0 < int(fg.sum()) < fg.numel():
-        fail("kernel F comparison is trivial")
-    # why the port divides a bin index by a tensor: on CUDA, PyTorch turns a
-    # division by a Python scalar into a multiplication by its reciprocal
-    thr = otsu_threshold_patchwise(img_eq, 32)
-    bins = torch.round(thr * 255.0)
-    flips = int(((img_eq < thr) != (img_eq < bins / 255.0)).sum())
-    print(f"  pixels that `x < bin / 255` decides otherwise on this card when "
-          f"the division is by a Python scalar: {flips} / {fg.numel()} "
-          f"(thresholds that differ: {int((thr != bins / 255.0).sum())})")
-    s_bad = int((cuda_binarize.sauvola_cuda(img_eq)
-                 != cuda_binarize.sauvola_plain(img_eq)).sum())
-    print(f"  Sauvola alone: mismatches {s_bad} / {fg.numel()}")
-    if s_bad > F_MAX_MISMATCH * fg.numel():
-        fail("kernel F (Sauvola alone) differs beyond the bound")
-    for what, otsu, got in (("hybrid", True, fg),
-                            ("Sauvola alone", False,
-                             cuda_binarize.sauvola_cuda(img_eq))):
-        old = int((got != variants.run_f(f_parent, True, img_eq, 25,
-                                         otsu)).sum())
-        print(f"  {what}: pixels that differ from the parent kernel {old}")
-        if old:
-            fail(f"kernel F ({what}) differs from the parent kernel")
-    f_parent_ms = time_ms(
-        lambda: variants.run_f(f_parent, True, img_eq, 25, True), 20)
-    f_ms = time_ms(lambda: cuda_binarize.binarize_foreground_cuda(img_eq), 20)
-    f_plain_ms = time_ms(
-        lambda: cuda_binarize.binarize_foreground_plain(img_eq), 3)
-    # float image in, byte mask out; per pixel two separable 25-tap box
-    # means (x and x*x: 4 passes of 25 multiplies and 24 adds), the
-    # threshold, and its share of the patch's histogram and Otsu scan
-    f_bound = bound(5.0 * npx, 215.0 * npx)
-    print(f"  time per call: kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
-          f"parent kernel {f_parent_ms:.4f} ms, "
-          f"bound {f_bound[0]:.4f} ms ({f_bound[1]})")
-    sv_parent_ms = time_ms(
-        lambda: variants.run_f(f_parent, True, img_eq, 25, False), 20)
-    sv_ms = time_ms(lambda: cuda_binarize.sauvola_cuda(img_eq), 20)
-    sv_plain_ms = time_ms(lambda: cuda_binarize.sauvola_plain(img_eq), 3)
-    sv_bound = bound(5.0 * npx, 212.0 * npx)      # F without the Otsu share
-    print(f"  Sauvola alone, time per call: kernel {sv_ms:.4f} ms, plain "
-          f"{sv_plain_ms:.4f} ms, parent kernel {sv_parent_ms:.4f} ms, bound "
-          f"{sv_bound[0]:.4f} ms ({sv_bound[1]})")
-    if sv_ms < sv_bound[0]:
-        fail("kernel F (Sauvola alone) timed under its bound")
-    f_ops = profile_ops(
-        lambda: cuda_binarize.binarize_foreground_cuda(img_eq))
-    print(f"  device ops of one wrapper call: {len(f_ops)} "
-          f"({top_ops(f_ops, 4)})")
-    # the file runner's staging size: one frame of 1024 x 1024
-    big = torch.rand((1, 1024, 1024), generator=torch.Generator(
-        device="cpu").manual_seed(9)).to(dev)
-    compare_exact("binarize front 1024x1024",
-                  lambda: cuda_binarize.binarize_foreground_cuda(big),
-                  lambda: cuda_binarize.binarize_foreground_plain(big))
-    compare_exact("sauvola 1024x1024",
-                  lambda: cuda_binarize.sauvola_cuda(big),
-                  lambda: cuda_binarize.sauvola_plain(big))
-    for win in (5, 33):       # windows the kernel does not unroll for
-        compare_exact(f"binarize front 1024x1024, win {win}",
-                      lambda: cuda_binarize.binarize_foreground_cuda(big, win),
-                      lambda: cuda_binarize.binarize_foreground_plain(big, win))
-    print(f"  1024x1024, time per call: kernel "
-          f"{time_ms(lambda: cuda_binarize.binarize_foreground_cuda(big), 20):.4f}"
-          f" ms, plain "
-          f"{time_ms(lambda: cuda_binarize.binarize_foreground_plain(big), 3):.4f}"
-          " ms")
-
-    print("kernel B alone, per mode (K6 is fill_holes on the object-filtered mask):")
-    kept = cuda_cc.cc_filter_cuda(fg, "remove_small", 1, min_size=80)
-    compare_exact("fill_holes(150) conn1 on the object-filtered mask",
-                  lambda: cuda_binarize.fill_holes_phase2(kept),
-                  lambda: cuda_cc.cc_filter_plain(kept, "fill_holes", 1,
-                                                  max_size=150))
-    cleaned = cuda_binarize.fill_holes_phase2(kept)
-    one_pass = bound(2.0 * npx, 10.0 * npx)
-    cc_modes = {}
-    for mname, kern, plain in (
-            ("remove_small(80) conn1",
-             lambda: cuda_cc.cc_filter_cuda(fg, "remove_small", 1, min_size=80),
-             lambda: cuda_cc.cc_filter_plain(fg, "remove_small", 1, min_size=80)),
-            ("fill_holes(150) conn1",
-             lambda: cuda_cc.cc_filter_cuda(kept, "fill_holes", 1, max_size=150),
-             lambda: cuda_cc.cc_filter_plain(kept, "fill_holes", 1, max_size=150)),
-            ("reach conn2",
-             lambda: cuda_cc.cc_filter_cuda(opened, "reach", 2, marker=marker),
-             lambda: cuda_cc.cc_filter_plain(opened, "reach", 2, marker=marker)),
-            ("largest conn2",
-             lambda: cuda_cc.cc_filter_cuda(binary_smooth, "largest", 2),
-             lambda: cuda_cc.cc_filter_plain(binary_smooth, "largest", 2)),
-            ("cc_label conn2",
-             lambda: cuda_cc.cc_label_cuda(binary_smooth, 2),
-             lambda: cuda_cc.cc_label_plain(binary_smooth, 2))):
-        cc_modes[mname] = (time_ms(kern, 20), time_ms(plain, 3))
-        # cc_label writes int32 labels instead of a byte mask
-        b_ms, b_by = bound(5.0 * npx, 10.0 * npx) if "label" in mname else one_pass
-        print(f"  {mname}: kernel {cc_modes[mname][0]:.4f} ms, plain "
-              f"{cc_modes[mname][1]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-
-    print("  clean(64, 80) conn1, device ops of one call: " + top_ops(
-        profile_ops(lambda: cuda_cc.cc_filter_cuda(
-            binary_smooth, "clean", 1, min_size=64, max_size=80)), 6))
-
-    print("kernel G (open -> erode -> reconstruct, a one-pass cross opening):")
-    g_res = kernel_g_phase(dev, cleaned, res.binary, morph_tool, g_parent)
-    compare_exact("unsplit entry point (F -> B clean -> G) against the split",
-                  lambda: cuda_binarize.binarize_fused(img_eq),
-                  lambda: cuda_binarize.binarize_fused_split(img_eq))
-    print("  F -> B -> G per call: unsplit (B clean) "
-          f"{time_ms(lambda: cuda_binarize.binarize_fused(img_eq), 10):.4f} ms, "
-          "split (B remove_small, B fill_holes) "
-          f"{time_ms(lambda: cuda_binarize.binarize_fused_split(img_eq), 10):.4f} ms")
-
-    print("small random shapes:")
-    g = torch.Generator(device="cpu").manual_seed(0)
-    for h, w in ((32, 32), (48, 64), (64, 64), (40, 24)):
-        rnd = (torch.rand((8, h, w), generator=g) < 0.55).to(dev)
-        mk = (torch.rand((8, h, w), generator=g) < 0.02).to(dev)
-        for conn in (1, 2):
-            compare_exact(f"labels {h}x{w} conn{conn}",
-                          lambda: cuda_cc.cc_label_cuda(rnd, conn),
-                          lambda: cuda_cc.cc_label_plain(rnd, conn))
-            for mode, kw in (("clean", dict(min_size=6, max_size=9)),
-                             ("largest", {}), ("reach", dict(marker=mk))):
-                compare_exact(f"{mode} {h}x{w} conn{conn}",
-                              lambda: cuda_cc.cc_filter_cuda(rnd, mode, conn, **kw),
-                              lambda: cuda_cc.cc_filter_plain(rnd, mode, conn, **kw))
-        compare_exact(f"thin {h}x{w}",
-                      lambda: cuda_thin.zs_thin_cuda(rnd, 128, True),
-                      lambda: cuda_thin.zs_thin_plain(rnd, 128, True))
-        dense = (torch.rand((8, h, w), generator=g) < 0.8).to(dev)
-        compare_exact(f"open/erode/reconstruct {h}x{w}",
-                      lambda: cuda_morph.open_erode_reconstruct_cuda(dense),
-                      lambda: cuda_morph.open_erode_reconstruct_plain(dense))
-        img = torch.rand((4, h, w), generator=g).to(dev)
-        for prec in ("bf16", "f32"):
-            d = (cuda_nlm.nlm_denoise_cuda(img, precision=prec)
-                 - denoise.nlm_denoise_plain(img, precision=prec)).abs()
-            print(f"  nlm {prec} {h}x{w}: max|d| {float(d.max()):.3g}")
-            if not float(d.max()) <= NLM_ATOL:
-                fail("NLM outside tolerance at a small shape")
-        compare_exact(f"sauvola {h}x{w}",
-                      lambda: cuda_binarize.sauvola_cuda(img),
-                      lambda: cuda_binarize.sauvola_plain(img))
-        if h % 32 == 0 and w % 32 == 0:
-            compare_exact(f"binarize front {h}x{w}",
-                          lambda: cuda_binarize.binarize_foreground_cuda(img),
-                          lambda: cuda_binarize.binarize_foreground_plain(img))
-    # kernel A on small frames, odd tile sides (9 x 5, 5 x 3) and one pixel a
-    # tile included, random and on the u8 grid: image and LUTs
-    for h, w in ((32, 32), (48, 64), (64, 64), (40, 24), (72, 40), (8, 8)):
-        for kind in ("random", "u8 grid"):
-            img = torch.rand((4, h, w), generator=g)
-            if kind == "u8 grid":
-                img = torch.round(img * 255.0) / 255.0
-            img = img.to(dev)
-            a, lut = cuda_kernels.clahe_cuda(img, 2.0, 8, return_lut=True)
-            d = (a - cuda_kernels.clahe_plain(img, 2.0, 8)).abs()
-            lut_bad = int((lut != cuda_kernels.clahe_lut_plain(img, 2.0, 8)).sum())
-            print(f"  clahe {h}x{w} {kind} (tiles {h // 8}x{w // 8}): max|d| "
-                  f"{float(d.max()):.3g}, LUT entries that differ {lut_bad}")
-            if float(d.max()) > CLAHE_ATOL or lut_bad:
-                fail("CLAHE outside tolerance at a small shape")
-
-    # 4. main path, counted and timed
+    # 4. the main path: each kernel's launches in one run, and its outputs
     print("main path:")
     build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     res, ms = run_path(x)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = build.launches()
-    print(f"  launches in one run: {launches}")
+    main_launches = build.launches()
+    print(f"  launches in one run: {main_launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
                 "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
-    if launches != expected:
-        fail(f"launch counts {launches}, expected {expected}")
-    iters = 3
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        run_path(x)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    img_s = BATCH * iters / dt
-    print(f"  {BATCH} images: counted run {first_s:.3f} s; {iters} more runs "
-          f"{dt:.3f} s -> {img_s:.1f} img/s on {card}")
-
-    # where the time goes: each stage alone, synchronized, host clock
-    stage_ms = stage_times(x)
-    print("  stage ms (one synchronized run): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in stage_ms.items()))
-
-    # device busy share of one run: host clock against the summed device
-    # time of the operations the same run issues under torch.profiler
-    _, host_s = wall_s(lambda: run_path(x))
-    ops = profile_ops(lambda: run_path(x))
-    dev_ms = device_ms(ops)
-    print(f"  one run: {host_s * 1e3:.1f} ms on the host clock; under "
-          f"torch.profiler {dev_ms:.1f} ms of device time in {len(ops)} device "
-          f"ops -> busy {dev_ms / (host_s * 1e3):.1%}")
-    print("  top device ops: " + top_ops(ops, 8))
-
-    # output checks
+    if main_launches != expected:
+        fail(f"main path launch counts {main_launches}, expected {expected}")
     if res.skeleton.shape != x.shape or res.skeleton.dtype != torch.bool:
         fail("skeleton shape/dtype")
     for f in ("normalized", "denoised", "segmented", "orientation",
               "reliability"):
         if not torch.isfinite(getattr(res, f)).all():
             fail(f"non-finite {f}")
-    if ms.xy.shape != (BATCH, 64, 2) or not torch.isfinite(ms.xy).all():
+    if ms.xy.shape != (x.shape[0], 64, 2) or not torch.isfinite(ms.xy).all():
         fail("minutiae xy shape or values")
     counts = ms.count.cpu()
     print(f"  valid minutiae per image (make_batch): min {int(counts.min())}, "
           f"median {float(counts.float().median()):.0f}, max {int(counts.max())}")
-    if int((counts > 0).sum()) < BATCH * 3 // 4:
+    if int((counts > 0).sum()) < x.shape[0] * 3 // 4:
         fail("most make_batch images yield no minutiae")
 
     n_cmp = 4
@@ -3735,8 +2783,7 @@ def main() -> None:
         fail("fewer than 12 of 16 blob prints yield >= 8 minutiae")
 
     # 5. the matcher
-    d = matcher_phases(dev, build, card, msb, run_path)
-
+    matcher_phases(dev, build, run_path)
     # 6. the file pipeline: images on disk to FRR/FAR/EER
     print("file pipeline (pipeline.run_all, skip_ssl=True, production "
           "matching configuration):")
@@ -3810,107 +2857,32 @@ def main() -> None:
     multi = multi_gpu_phase(dev, build, card, gal)
     print(json.dumps({"multi_gpu": {"card": card, **multi}}))
 
-    src = f"{PKG}/csrc"
-    jax_ops = "multimodal_biometric_fingerprints_palms_tpu/ops"
-
-    def entry(name, source, replaces, count, err, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda", "source": f"{src}/{source}",
-                "replaces": replaces, "launches": count, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
-
-    # library_ms is null throughout: no single PyTorch call computes CLAHE,
-    # a component filter, thinning, hypothesis scoring, NLM, the hybrid
-    # threshold or the reconstruction tail
-    kernels = [
-        entry("clahe", "clahe.cu", f"{jax_ops}/pallas_kernels.py:1460",
-              launches["clahe"], clahe_err, clahe_ms, clahe_plain_ms,
-              clahe_bound),
-        entry("cc_label_filter", "cc.cu", f"{jax_ops}/pallas_cc.py:552",
-              launches["cc"], 0.0, cc_ms, cc_plain_ms, cc_bound),
-        entry("zs_thin", "thin.cu", f"{jax_ops}/pallas_bitpack.py:382",
-              launches["thin"], 0.0, thin_ms, thin_plain_ms, thin_bound),
-        entry("hypothesis_scores", "match.cu",
-              "multimodal_biometric_fingerprints_palms_tpu/matching/"
-              "pallas_match.py:218", d["launches"], d["err"], d["ms"],
-              d["plain_ms"], (d["bound_ms"], d["bound_by"])),
-        entry("nlm_denoise", "nlm.cu", f"{jax_ops}/pallas_kernels.py:794",
-              launches["nlm"], nlm_err, nlm_ms, nlm_plain_ms, nlm_bound),
-        entry("binarize_front", "binarize.cu",
-              f"{jax_ops}/pallas_kernels.py:1118", launches["binarize"],
-              float(f_bad > 0), f_ms, f_plain_ms, f_bound),
-        entry("open_erode_reconstruct", "morph.cu",
-              f"{jax_ops}/pallas_bitpack.py:329", launches["morph"], 0.0,
-              g_res["ms"], g_res["plain_ms"], g_res["bound"]),
-        entry("finish_match", "finish.cu",
-              "none (matching/ransac.py's finish is XLA's)",
-              d["h"]["launches"], d["h"]["err"], d["h"]["ms"],
-              d["h"]["plain_ms"], (d["h"]["bound_ms"], d["h"]["bound_by"])),
-        entry("sample_pairs", "sample.cu",
-              "none (matching/ransac.py's statistics and sampling are XLA's)",
-              d["i"]["launches"], d["i"]["err"], d["i"]["ms"],
-              d["i"]["plain_ms"], (d["i"]["bound_ms"], d["i"]["bound_by"])),
-    ]
-    # for kernel D also: the device operations one wrapper call launches, its
-    # time against the kernel it replaced (that one's input staging
-    # included), and the largest score difference between the two
-    kernels[3].update({key: d[key] for key in (
-        "device_ops_per_call", "parent_ms", "max_abs_diff_parent")})
-    # for kernels A, F and G likewise: device operations of one wrapper call
-    # and the time of the kernel each replaced, taken in the same run
-    kernels[0].update(device_ops_per_call=len(clahe_ops),
-                      parent_ms=clahe_parent_ms)
-    kernels[5].update(device_ops_per_call=len(f_ops), parent_ms=f_parent_ms,
-                      sauvola_alone_ms=sv_ms,
-                      sauvola_alone_parent_ms=sv_parent_ms)
-    kernels[6].update(device_ops_per_call=g_res["device_ops_per_call"],
-                      parent_ms=g_res["parent_ms"], device_ms=g_res["device_ms"])
-    # for kernel H: its device time, and the device operations of the plain
-    # finish and of one whole matcher call
-    kernels[7].update({key: d["h"][key] for key in (
-        "device_ops_per_call", "device_ms", "plain_device_ops",
-        "match_call_device_ops")})
-    # for kernel I: its device time and the plain twin's device operations,
-    # at the identification call's P and the x4 cell's
-    kernels[8].update({key: d["i"][key] for key in (
-        "device_ops_per_call", "device_ms", "plain_device_ops", "by_pairs")})
-    # launches in the file pipeline's stage that runs each kernel
-    for k, counter in zip(kernels, build.KERNELS):
-        stage = ("matching" if counter in ("match", "finish", "sample")
-                 else "preprocessing")
-        k["file_pipeline_launches"] = fp["launches"][stage][counter]
-    # launches in run_all over the formats tree (counts set to 0 just
-    # before it and read just after)
-    for k, counter in zip(kernels, build.KERNELS):
-        k["formats_launches"] = fmts["launches"][counter]
-    # kernel D's launches in the gallery's all-pairs sweep with the cascade
-    kernels[3]["gallery_launches"] = gal["launches"]
-    # and summed over the ranks of the multi-GPU phase's sweep and
-    # identify_batch (counts set to 0 in each rank just before, read after)
-    kernels[3]["multi_gpu_launches"] = multi["launches"]
-    # kernel C beyond one block's shared memory (the device-memory form)
-    kernels[2]["large_frames"] = c_large
-    # launches of each kernel in run_all(skip_ssl=False) from a raw tree
-    for k, counter in zip(kernels, build.KERNELS):
-        k["ssl_run_all_launches"] = raw["launches"][counter]
-    # and in run_all(skip_ssl=False, train=True), which trains first
-    for k, counter in zip(kernels, build.KERNELS):
-        k["train_run_all_launches"] = trained["run_all"]["launches"][counter]
-    # launches of each kernel on the Gabor path (its counts set to 0 just
-    # before it and read just after)
-    for k, counter in zip(kernels, build.KERNELS):
-        k["gabor_path_launches"] = gab["launches"][counter]
-    for k in kernels:
-        for key in ("ms", "plain_ms", "max_abs_err", "bound_ms"):
-            if not math.isfinite(k[key]):
-                fail(f"{k['name']} {key} not finite")
-        if k["launches"] <= 0:
-            fail(f"{k['name']} was not launched on its path")
-        if k["ms"] < k["bound_ms"]:
-            fail(f"{k['name']}: {k['ms']:.4f} ms reads under its bound "
-                 f"{k['bound_ms']:.4f} ms; the bound is miscounted")
+    # each kernel's launches on the paths above (their counts set to 0 just
+    # before each and read just after)
+    matcher = ("match", "finish", "sample")
+    launches = {
+        "file_pipeline": {k: fp["launches"][
+            "matching" if k in matcher else "preprocessing"][k]
+            for k in build.KERNELS},
+        "formats": fmts["launches"], "gabor_path": gab["launches"],
+        "ssl_run_all": raw["launches"],
+        "train_run_all": trained["run_all"]["launches"],
+        # kernel D in the gallery's all-pairs sweep with the cascade, and
+        # summed over the ranks of the multi-GPU phase's sweep and
+        # identify_batch
+        "gallery": {"match": gal["launches"]},
+        "multi_gpu": {"match": multi["launches"]},
+    }
+    # each row's launches on its kernel's path: the main path for the
+    # preprocessing kernels, the file pipeline's matching for D, H and I
+    for row in table:
+        row["main_path_launches"] = main_launches[row["counter"]]
+        row["file_pipeline_launches"] = launches["file_pipeline"][row["counter"]]
+        if not (row["main_path_launches"] if row["counter"] not in matcher
+                else row["file_pipeline_launches"]):
+            fail(f"{row['name']}: its kernel was not launched on its path")
     print(f"card: {card}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": table, "launches": launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -173,8 +173,9 @@ def zs_thin_cuda(mask: torch.Tensor, max_iters: int = 128,
     """Kernel C on a CUDA (..., H, W) mask; same contract as the plain twin,
     for any H, W >= 1. ``form`` "auto" picks one block an image where the
     two packed planes fit its shared memory and device memory elsewhere;
-    "block" and "device" ask for one (``chip_smoke.py`` holds both to the
-    twin; "block" raises for a frame that does not fit)."""
+    "block" and "device" ask for one (the card tests of
+    ``tests/test_torch_skeleton.py`` hold both to the twin; "block" raises
+    for a frame that does not fit)."""
     if mask.device.type != "cuda":
         raise ValueError(f"zs_thin_cuda needs a CUDA tensor, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):

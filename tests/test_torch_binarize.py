@@ -10,6 +10,10 @@ pixels and Sauvola alone on more than 99.9% (the TPU kernels sum the 25x25
 box as a log tree and take the patch std as e2 - e1^2, so a pixel on the
 `x < threshold` edge can flip, and a flipped pixel can move a component
 across a size limit); the mask-only functions are exact.
+
+Marked ``card``: kernel F against its plain twin on the card, off on at
+most ``F_MAX_MISMATCH`` of the pixels on the main path's input, exact
+elsewhere.
 """
 
 import numpy as np
@@ -25,6 +29,8 @@ from multimodal_biometric_fingerprints_palms_tpu_torch.ops.components import (
     clean_mask)
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops.morphology import (
     binary_erode, binary_opening, binary_reconstruction_by_dilation)
+from torch_card import (  # noqa: F401  (card, stages: fixtures)
+    F_MAX_MISMATCH, card, stages)
 
 torch.set_num_threads(1)
 
@@ -225,3 +231,55 @@ def test_otsu_patch_passes_match_the_twin(ridge_image, kind):
     # another order of 1,024 additions: a few ulps, and the same gate
     assert float((p_std - ref).abs().max()) <= 1e-6
     assert torch.equal(p_std >= 3.0 / 255.0, ref >= 3.0 / 255.0)
+
+
+# --- kernel F on the card, against its twin ----------------------------------
+
+@pytest.mark.card
+def test_kernel_f_equals_its_twin_on_the_main_paths_input(stages):
+    """The path's equalized images: the hybrid threshold against the twin
+    on the card and, for 4 images, on the CPU; Sauvola alone against its
+    twin; each off on at most F_MAX_MISMATCH of the pixels, and the mask
+    neither empty nor full."""
+    img_eq, fg = stages.img_eq, stages.fg
+    fg_cpu = TB.binarize_foreground_plain(img_eq[:4].cpu())
+    assert int((fg != TB.binarize_foreground_plain(img_eq)).sum()) \
+        <= F_MAX_MISMATCH * fg.numel()
+    assert int((fg[:4].cpu() != fg_cpu).sum()) <= F_MAX_MISMATCH * fg_cpu.numel()
+    assert 0 < int(fg.sum()) < fg.numel()
+    assert int((TB.sauvola_cuda(img_eq) != TB.sauvola_plain(img_eq)).sum()) \
+        <= F_MAX_MISMATCH * fg.numel()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", ["front", "sauvola", "front win 5",
+                                  "front win 33"])
+def test_kernel_f_on_a_1024_frame(card, case):
+    """The file runner's staging size, one frame of 1024x1024, and windows
+    the kernel does not unroll for: exact."""
+    big = torch.rand((1, 1024, 1024),
+                     generator=torch.Generator().manual_seed(9)).to(card)
+    win = (int(case.split()[-1]),) if "win" in case else ()
+    name = "sauvola" if case == "sauvola" else "binarize_foreground"
+    assert torch.equal(getattr(TB, name + "_cuda")(big, *win),
+                       getattr(TB, name + "_plain")(big, *win))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("hw", [(32, 32), (48, 64), (64, 64), (40, 24)])
+def test_kernel_f_on_small_frames(card, hw):
+    """Small frames: Sauvola everywhere, the hybrid where the frame is
+    whole 32x32 patches; exact."""
+    img = torch.rand((4, *hw), generator=torch.Generator().manual_seed(0)).to(card)
+    assert torch.equal(TB.sauvola_cuda(img), TB.sauvola_plain(img))
+    if hw[0] % 32 == 0 and hw[1] % 32 == 0:
+        assert torch.equal(TB.binarize_foreground_cuda(img),
+                           TB.binarize_foreground_plain(img))
+
+
+@pytest.mark.card
+def test_unsplit_entry_point_equals_the_split_on_the_card(stages):
+    """F -> B clean -> G through ``binarize_fused`` against F -> B
+    remove_small -> B fill_holes -> G: exact."""
+    assert torch.equal(TB.binarize_fused(stages.img_eq),
+                       TB.binarize_fused_split(stages.img_eq))

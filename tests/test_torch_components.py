@@ -1,6 +1,7 @@
 """Port parity: connected components (kernel B's plain twin) and the mask
-ops built on it, against the JAX package on the CPU. All outputs are
-boolean or integer labels and must match exactly."""
+ops built on it, against the JAX package on the CPU; and, marked ``card``,
+kernel B against that twin on the card. All outputs are boolean or integer
+labels and must match exactly."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_cc import (
     BACKGROUND, cc_filter, cc_filter_plain, cc_label_plain)
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
     adversarial_masks)
+from torch_card import card, stages  # noqa: F401  (fixtures)
 
 torch.set_num_threads(1)
 
@@ -110,11 +112,11 @@ ADVERSARIAL = ("spiral", "serpentine", "checkerboard", "comb", "full", "empty")
 @pytest.mark.parametrize("conn", [1, 2])
 @pytest.mark.parametrize("name", ADVERSARIAL)
 def test_plain_twin_exact_on_adversarial_masks(name, conn):
-    """The masks on which the card's smoke run holds kernel B to its plain
-    twin (components that cross every tile seam, the most runs a row holds,
-    the trivial planes), at a small size that is no multiple of the kernel's
-    tile: here the twin itself is held to the JAX package, labels and every
-    filter mode."""
+    """The masks on which ``test_kernel_b_on_adversarial_masks`` holds
+    kernel B to its plain twin on the card (components that cross every
+    tile seam, the most runs a row holds, the trivial planes), at a small
+    size that is no multiple of the kernel's tile: here the twin itself is
+    held to the JAX package, labels and every filter mode."""
     h, w = 37, 45
     m = adversarial_masks(h, w)[name][None]
     marker = np.random.default_rng(11).random(m.shape) < 0.02
@@ -152,3 +154,95 @@ def test_adversarial_masks_are_what_they_claim():
     # the spiral is one pixel wide: no 2x2 block is set
     s = masks["spiral"]
     assert not (s[:-1, :-1] & s[1:, :-1] & s[:-1, 1:] & s[1:, 1:]).any()
+
+
+# --- kernel B on the card, against its twin ----------------------------------
+
+def _labels_and_modes(m, conn, modes, marker=None):
+    """(kernel, twin) pairs: the labels, and each filter mode of ``modes``
+    on ``m`` (``reach`` with ``marker``)."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_cc
+    out = [(cuda_cc.cc_label_cuda(m, conn), cuda_cc.cc_label_plain(m, conn))]
+    for mode, kw in modes:
+        if mode == "reach":
+            kw = dict(marker=marker)
+        out.append((cuda_cc.cc_filter_cuda(m, mode, conn, **kw),
+                    cuda_cc.cc_filter_plain(m, mode, conn, **kw)))
+    return out
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("conn", [1, 2])
+@pytest.mark.parametrize("case", ["labels mask", "labels binary",
+                                  "labels smooth", "remove_small", "fill_holes",
+                                  "clean", "largest", "reach"])
+def test_kernel_b_equals_its_twin_on_the_main_paths_inputs(stages, case,
+                                                           conn):
+    """Labels of the path's mask, binary mask and smoothed mask; the five
+    filter modes at the path's sizes (reach on the opening from its
+    erosion): exact."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_cc
+    if case.startswith("labels"):
+        m = {"mask": stages.res.mask, "binary": stages.res.binary,
+             "smooth": stages.smooth}[case.split()[1]]
+        a, b = cuda_cc.cc_label_cuda(m, conn), cuda_cc.cc_label_plain(m, conn)
+    else:
+        kw = {"remove_small": dict(min_size=80), "fill_holes": dict(max_size=150),
+              "clean": dict(min_size=64, max_size=80), "largest": {},
+              "reach": dict(marker=stages.marker)}[case]
+        m = stages.opened if case == "reach" else stages.smooth
+        a = cuda_cc.cc_filter_cuda(m, case, conn, **kw)
+        b = cuda_cc.cc_filter_plain(m, case, conn, **kw)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.card
+def test_kernel_b_fill_holes_on_the_object_filtered_mask(stages):
+    """K6, fill_holes(150) 4-connected on the object-filtered mask through
+    ``fill_holes_phase2``: exact."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        cuda_binarize, cuda_cc)
+    assert torch.equal(cuda_binarize.fill_holes_phase2(stages.kept),
+                       cuda_cc.cc_filter_plain(stages.kept, "fill_holes", 1,
+                                               max_size=150))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("hw", [(320, 256), (33, 70), (7, 130), (1, 1),
+                                (2, 2), (1024, 1024)])
+def test_kernel_b_on_adversarial_masks(card, hw):
+    """Where a tiled labelling is most likely to break: components that
+    cross every tile seam many times (spiral, serpentine), the most runs a
+    row holds (comb), the checkerboard, the trivial planes, frames that are
+    no multiple of the tile, and at 1024x1024 (far beyond a block's shared
+    memory) the spiral, serpentine, checkerboard and random(0.55). Labels
+    and all five modes, both connectivities: exact."""
+    g = np.random.default_rng(5)
+    h, w = hw
+    inputs = {name: m[None] for name, m in adversarial_masks(h, w).items()
+              if h < 1024 or name in ("spiral", "serpentine", "checkerboard")}
+    if h == 1024:
+        inputs["random(0.55)"] = g.random((1, 1024, 1024)) < 0.55
+    modes = (("remove_small", dict(min_size=40)),
+             ("fill_holes", dict(max_size=40)),
+             ("clean", dict(min_size=40, max_size=40)),
+             ("largest", {}), ("reach", {}))
+    for name, arr in inputs.items():
+        m = torch.from_numpy(arr).to(card)
+        mk = torch.from_numpy(g.random(arr.shape) < 0.001).to(card)
+        for conn in (1, 2):
+            for a, b in _labels_and_modes(m, conn, modes, mk):
+                assert torch.equal(a, b), (name, conn)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("hw", [(32, 32), (48, 64), (64, 64), (40, 24)])
+def test_kernel_b_on_small_random_frames(card, hw):
+    g = torch.Generator().manual_seed(0)
+    rnd = (torch.rand((8, *hw), generator=g) < 0.55).to(card)
+    mk = (torch.rand((8, *hw), generator=g) < 0.02).to(card)
+    modes = (("clean", dict(min_size=6, max_size=9)), ("largest", {}),
+             ("reach", {}))
+    for conn in (1, 2):
+        for a, b in _labels_and_modes(rnd, conn, modes, mk):
+            assert torch.equal(a, b), conn

@@ -8,7 +8,8 @@ within the tolerances below. The JAX chain runs in its XLA form
 (``use_pallas=False``), as the JAX package's own CPU tests run it, and
 once more as its kernel-backed path (``use_pallas=True``), composed by hand
 because the enhance functions pass no ``interpret``: the Pallas NLM and
-binarize kernels run in interpret mode there.
+binarize kernels run in interpret mode there. Marked ``card``: the main
+path on the card launches each kernel as often as counted.
 """
 
 import math
@@ -27,6 +28,7 @@ import multimodal_biometric_fingerprints_palms_tpu_torch.preprocessing.enhance a
 import multimodal_biometric_fingerprints_palms_tpu_torch.features as TF
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
     orientation as TO)
+from torch_card import card, run_path, stages  # noqa: F401  (fixtures)
 
 torch.set_num_threads(1)
 
@@ -270,3 +272,15 @@ def test_quality_scores_equal_numpy_true_division():
     want = np.where(out.valid.numpy(), score, np.float32(0)).astype(np.float32)
     np.testing.assert_array_equal(out.quality.numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+@pytest.mark.card
+def test_main_path_launches_each_kernel_as_counted(stages):
+    """One run of the main path on ``make_batch(128)``: CLAHE three times,
+    B four, C, E, F and G once, none of the matcher's kernels."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.kernels import build
+    build.reset_launches()
+    run_path(stages.x)
+    assert build.launches() == {"clahe": 3, "cc": 4, "thin": 1, "match": 0,
+                                "nlm": 1, "binarize": 1, "morph": 1,
+                                "finish": 0, "sample": 0}

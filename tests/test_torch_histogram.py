@@ -1,5 +1,6 @@
 """Port parity: ops/histogram.py (percentiles, Otsu, CLAHE = kernel A's
-plain twin) against the JAX package on the CPU."""
+plain twin) against the JAX package on the CPU; and, marked ``card``,
+kernel A against that twin on the card."""
 
 import numpy as np
 import pytest
@@ -13,14 +14,10 @@ from multimodal_biometric_fingerprints_palms_tpu.ops.pallas_kernels import (
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import histogram as T
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops.cuda_kernels import (
     clahe_lut_plain, clahe_lut_scan_plain)
+from torch_card import (  # noqa: F401  (card, stages: fixtures)
+    CLAHE_ATOL, CLAHE_MAX_OFF, card, stages)
 
 torch.set_num_threads(1)
-
-# CLAHE: the LUTs agree exactly (all their sums are exact in float32 at
-# these tile sizes); the blend may differ by one float32 rounding, and a
-# LUT may differ by one level only at a cdf*scale half-integer tie.
-CLAHE_ATOL = 1.0 / 255.0 + 1e-6
-CLAHE_MAX_OFF = 1e-3       # fraction of pixels further apart than 1e-6
 
 
 def _u8_images(rng, b, h, w):
@@ -187,3 +184,41 @@ def test_no_division_by_a_python_scalar_that_is_no_power_of_two(module):
     for form in ("/ 255.0", "/ 100.0", "/ (w / 2.0)", "/ (h / 2.0)", "/ 255)",
                  "/ 100)"):
         assert form not in src, form
+
+
+# --- kernel A on the card, against its twin ----------------------------------
+
+@pytest.mark.card
+@pytest.mark.parametrize("call", [0, 1, 2], ids=["normalize", "segment",
+                                                 "binarize"])
+def test_kernel_a_equals_its_twin_on_the_main_paths_inputs(stages, call):
+    """The path's three CLAHE calls on their real inputs: the image within
+    CLAHE_ATOL on all but CLAHE_MAX_OFF of its pixels, the LUTs equal."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        cuda_kernels)
+    clip, inp = stages.clahe_in[call]
+    a, lut = cuda_kernels.clahe_cuda(inp, clip, 8, return_lut=True)
+    d = (a - cuda_kernels.clahe_plain(inp, clip, 8)).abs()
+    assert bool(torch.isfinite(a).all())
+    assert float(d.max()) <= CLAHE_ATOL
+    assert float((d > 1e-6).float().mean()) <= CLAHE_MAX_OFF
+    assert torch.equal(lut, cuda_kernels.clahe_lut_plain(inp, clip, 8))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["random", "u8 grid"])
+@pytest.mark.parametrize("hw", [(32, 32), (48, 64), (64, 64), (40, 24),
+                                (72, 40), (8, 8)])
+def test_kernel_a_on_small_frames_and_odd_tiles(card, hw, kind):
+    """Small frames, odd tile sides (9 x 5, 5 x 3) and one pixel a tile,
+    random and on the u8 grid: the image within CLAHE_ATOL, LUTs equal."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
+        cuda_kernels)
+    img = torch.rand((4, *hw), generator=torch.Generator().manual_seed(0))
+    if kind == "u8 grid":
+        img = torch.round(img * 255.0) / 255.0
+    img = img.to(card)
+    a, lut = cuda_kernels.clahe_cuda(img, 2.0, 8, return_lut=True)
+    assert float((a - cuda_kernels.clahe_plain(img, 2.0, 8)).abs().max()) \
+        <= CLAHE_ATOL
+    assert torch.equal(lut, cuda_kernels.clahe_lut_plain(img, 2.0, 8))

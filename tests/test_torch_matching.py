@@ -18,6 +18,8 @@ run their plain twins (CPU tensors). Tolerances, with their reasons:
   while XLA's float32 cos and sin differ from that in the last bit for
   ~1.3% of angles, which moves t by up to 2 ulps (6.1e-5 px measured). A
   different selected minutia moves it by pixels.
+
+Marked ``card``: kernels D, H and I against their plain twins on the card.
 """
 
 from __future__ import annotations
@@ -49,14 +51,13 @@ from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
     cuda_match as tcm, dataset as tds, ransac as tr, runner as trun)
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils import threefry
 from multimodal_biometric_fingerprints_palms_tpu_torch.utils import io as tio
+from torch_card import (  # noqa: F401  (card: a fixture)
+    D_ATOL, FAR_GATES, FRR_GATES, H_FULL, SCREEN_ITERS, card, hypothesis_args,
+    matcher_gallery)
 
 torch.set_num_threads(1)
 
 FIXTURES = Path(__file__).parent / "fixtures" / "parity"
-FRR_GATES = dict(dist_thresh=30.0, orient_thresh=math.radians(30.0),
-                 min_inliers=6)
-FAR_GATES = dict(dist_thresh=15.0, orient_thresh=math.radians(10.0),
-                 min_inliers=12)
 
 
 def _params(**kw):
@@ -794,11 +795,42 @@ def test_finish_match_cuda_refuses_what_kernel_h_does_not_take(case):
     assert build.launches() == before
 
 
-@pytest.fixture()
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+# --- kernel D on the card, against its twin ----------------------------------
+
+D_CASES = {
+    "FRR gates, H=300": dict(ransac_iter=H_FULL, **FRR_GATES),
+    "FAR gates, H=300": dict(ransac_iter=H_FULL, **FAR_GATES),
+    "screen, H=32 of 300": dict(ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
+                                **{**FRR_GATES, "min_inliers": 4}),
+    "scattered validity, FRR gates": dict(ransac_iter=H_FULL, **FRR_GATES),
+    "4,096 pairs, FRR gates": dict(ransac_iter=H_FULL, **FRR_GATES),
+}
+
+
+@pytest.fixture(scope="module")
+def d_gallery(card):
+    return matcher_gallery(card)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", list(D_CASES))
+def test_kernel_d_equals_its_twin_on_the_card(d_gallery, case):
+    """Kernel D on the (P, K) templates of a 512-pair chunk (the fixture
+    templates and the main path's blob-print templates) under the FRR
+    gates, the FAR gates and the cascade screen's parameters; with
+    validity scattered over the slots and hypotheses onto the invalid B
+    slots' point; and on 4,096 fixture pairs: counts equal, scores within
+    D_ATOL and finite, some score above 0."""
+    ds, pairs, many = d_gallery
+    args = hypothesis_args(ds, many if case.startswith("4,096") else pairs,
+                           tr.MatchParams(**D_CASES[case]),
+                           scattered=case.startswith("scattered"))
+    sk, ck = tcm.hypothesis_scores_cuda(*args)
+    sp, cp = tcm.hypothesis_scores_plain(*args)
+    assert torch.equal(ck, cp)
+    assert bool(torch.isfinite(sk).all())
+    assert float((sk - sp).abs().max()) <= D_ATOL
+    assert int((sk > 0).sum()) > 0
 
 
 @pytest.mark.card

@@ -7,6 +7,9 @@ those kernels to against the XLA form. Every per-offset weight and value is
 the same rounded number in both packages; the symmetric-pair kernel adds
 its direct and mirror terms in another order than the offset order the port
 uses, which moves the float32 sums by a few 1e-7.
+
+Marked ``card``: kernel E against the plain twin on the card, within
+``NLM_ATOL``.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ from multimodal_biometric_fingerprints_palms_tpu.ops import (
     pallas_kernels as JK)
 from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
     denoise as TD)
+from torch_card import (  # noqa: F401  (card, stages: fixtures)
+    NLM_ATOL, NLM_MAX_OFF, card, stages)
 
 torch.set_num_threads(1)
 
@@ -63,3 +68,37 @@ def test_kernel_entry_points_are_the_one_function(entry):
     for precision in ("bf16", "f32"):
         assert torch.equal(tfn(x, 12.0, 5, 9, precision),
                            TD.nlm_denoise_plain(x, 12.0, 5, 9, precision))
+
+
+# --- kernel E on the card, against its twin ----------------------------------
+
+def _kernel_against_twin(img, precision):
+    from multimodal_biometric_fingerprints_palms_tpu_torch.ops import cuda_nlm
+    a = cuda_nlm.nlm_denoise_cuda(img, precision=precision)
+    d = (a - TD.nlm_denoise_plain(img, precision=precision)).abs()
+    assert bool(torch.isfinite(a).all())
+    assert float(d.max()) <= NLM_ATOL
+    return d
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("precision,images", [("bf16", 128), ("f32", 16)])
+def test_kernel_e_equals_its_twin_on_the_main_paths_input(stages, precision,
+                                                          images):
+    """The path's normalized images: within NLM_ATOL, and off by more than
+    1e-6 on at most NLM_MAX_OFF of the pixels."""
+    d = _kernel_against_twin(stages.res.normalized[:images], precision)
+    assert int((d > 1e-6).sum()) <= NLM_MAX_OFF * d.numel()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("hw,images", [
+    ((2, 2), 3), ((5, 37), 3), ((33, 70), 3), ((64, 64), 3), ((70, 67), 3),
+    ((131, 195), 3), ((32, 32), 4), ((48, 64), 4), ((40, 24), 4)])
+def test_kernel_e_on_small_and_ragged_frames(card, hw, images, precision):
+    """Frames smaller than the halo, no multiple of the tiles or strips,
+    and where the kernel's two bodies meet: within NLM_ATOL."""
+    g = torch.Generator().manual_seed(3)
+    _kernel_against_twin(torch.rand((images, *hw), generator=g).to(card),
+                         precision)

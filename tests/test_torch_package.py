@@ -546,17 +546,14 @@ def test_kernel_sources_exist():
 def test_kernel_d_reads_the_matchers_tensors():
     """Kernel D's entry point takes the matcher's own tensors (five fields
     per template side, four hypothesis tensors, two outputs): no staging
-    launches before it. The kernel it replaced stays beside the tool that
-    holds the two together, outside the package's build."""
+    launches before it, and no rounding to the nearest integer of the
+    kernel it replaced."""
     sig = build._SIGNATURES["mbfp_hypothesis_scores"]
     assert sig.count(build._P) == 17 and len(sig) == 26   # 16 tensors + stream
     src = (build.CSRC_DIR / "match.cu").read_text()
     assert 'extern "C" int mbfp_hypothesis_scores(' in src
     for word in ("rintf", "nearbyintf", "wgmma does not apply"):
         assert (word in src) == (word == "wgmma does not apply"), word
-    parent = ROOT / "tools" / "match_parent.cu"
-    assert "rintf" in parent.read_text()
-    assert "match_parent.cu" not in build.SOURCES
 
 
 def test_kernel_h_is_built_and_declared():
@@ -596,20 +593,15 @@ def test_kernel_i_is_built_and_declared():
 def test_kernels_f_and_a_take_scratch_from_the_wrapper():
     """Kernel F's entry point takes the mean and std scratch planes beside
     the max-std words (one filtering pass, two device launches), kernel A's
-    a byte LUT; the kernels they replaced stay beside the tool that holds
-    each pair together, outside the package's build."""
+    a byte LUT; neither keeps the form of the kernel it replaced (F's
+    separate max-std pass, A's float LUTs)."""
     sig = build._SIGNATURES["mbfp_binarize_front"]
     assert sig.count(build._P) == 6 and len(sig) == 13
     src = (build.CSRC_DIR / "binarize.cu").read_text()
+    clahe_src = (build.CSRC_DIR / "clahe.cu").read_text()
     assert "mean_std_kernel" in src and "__match_any_sync" not in src
-    assert "uint8_t* lut" in (build.CSRC_DIR / "clahe.cu").read_text()
-    for parent, word in (("binarize_parent.cu", "std_max_kernel"),
-                         ("clahe_parent.cu", "float* lut")):
-        assert word in (ROOT / "tools" / parent).read_text()
-        assert parent not in build.SOURCES
-    tool = (ROOT / "tools" / "binarize_clahe_variants.py").read_text()
-    for old in re.findall(r'\("(constexpr [^"]+;)",', tool):
-        assert old in src + (build.CSRC_DIR / "clahe.cu").read_text(), old
+    assert "std_max_kernel" not in src
+    assert "uint8_t* lut" in clahe_src and "float* lut" not in clahe_src
 
 
 def test_thinning_wrapper_takes_large_and_ragged_frames():
@@ -657,18 +649,12 @@ def test_kernel_g_takes_any_frame():
 
 
 def test_kernel_g_parent_stays_outside_the_build():
-    """The kernel G replaced stays beside the tool that holds the two
-    together, outside the package's build, and every text substitution of
-    the tool's variants still finds its line in the shipped source."""
-    parent = (ROOT / "tools" / "morph_parent.cu").read_text()
-    assert "__syncthreads_or" in parent and "extern __shared__" in parent
-    assert "morph_parent.cu" not in build.SOURCES
-    src = (build.CSRC_DIR / "morph.cu").read_text()
-    tool = (ROOT / "tools" / "morph_variants.py").read_text()
-    subs = re.findall(r'\("(constexpr [^"]+;)",', tool)
-    assert subs
-    for old in subs:
-        assert old in src, old
+    """The library builds the package's own sources, every one of them, and
+    nothing else: no kernel a shipped one replaced (G's among them) is
+    built beside it."""
+    assert all("parent" not in name for name in build.SOURCES)
+    assert sorted(build.SOURCES) == sorted(
+        p.name for p in build.CSRC_DIR.glob("*.cu"))
 
 
 def test_kernel_headers_are_part_of_the_library_hash(tmp_path, monkeypatch):
@@ -769,13 +755,12 @@ def test_hypothesis_scores_cuda_refuses_other_devices(device):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tests/torch_card.py",
                                     "tools/port_output_digest.py",
-                                    "tools/nlm_variants.py",
-                                    "tools/match_variants.py",
-                                    "tools/binarize_clahe_variants.py",
-                                    "tools/morph_variants.py",
-                                    "tools/matcher_rate.py",
+                                    "tools/codec_times.py",
+                                    "tools/padded_frame_pairs.py",
                                     "tools/finish_check.py",
+                                    "tools/sample_check.py",
                                     "tools/polyu_set.py",
                                     "tools/gabor_eer_port.py",
                                     "tools/ssl_front_port.py",
