@@ -127,6 +127,8 @@ KERNEL_SITES = {
     "finish": ("finish.cu", "none (matching/ransac.py's finish is XLA's)"),
     "sample": ("sample.cu", "none (matching/ransac.py's statistics and "
                "sampling are XLA's)"),
+    "anchor": ("anchor.cu", "none (matching/ransac.py's anchor_promote is "
+               "plain jnp)"),
 }
 
 
@@ -221,7 +223,8 @@ def kernel_table(dev, st) -> list:
     """One row a kernel call at the main path's shapes (``st``: the stage
     inputs of ``tests/torch_card.py``, batch 128 of 320x256; D at P=512,
     H=300, K=64 on the card tests' gallery; H and I at an identification
-    call, P=1,024 (I also 4,050), H=300, K=64), for ``PERF.md``'s kernel
+    call, P=1,024 (I also 4,050), H=300, K=64; J at a screen tile, P=4,096,
+    8 anchors, K=64), for ``PERF.md``'s kernel
     table: ms a call of the kernel by CUDA events around back-to-back
     calls, its device time and device operations a call under
     ``cudabench.tracing.profiled``, its plain twin's ms, and the bound:
@@ -239,15 +242,16 @@ def kernel_table(dev, st) -> list:
     import torch
     from torch_card import (
         CLAHE_ATOL, CLAHE_MAX_OFF, D_ATOL, F_MAX_MISMATCH, FRR_GATES, H_FULL,
-        NLM_ATOL, NLM_MAX_OFF, hypothesis_args, matcher_gallery)
+        J_MAX_MISMATCH, NLM_ATOL, NLM_MAX_OFF, SCREEN_ITERS, anchor_args,
+        hypothesis_args, matcher_gallery)
     from cudabench import work
     from cudabench.tracing import profiled
     from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
-        minutiae_from_numpy)
+        MinutiaeSet, minutiae_from_numpy)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
         cuda_match as cm)
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.ransac import (
-        MatchParams, _finish_match)
+        MatchParams, _anchor_promote, _finish_match)
     from multimodal_biometric_fingerprints_palms_tpu_torch.ops import (
         cuda_binarize, cuda_cc, cuda_kernels, cuda_morph, cuda_nlm, cuda_thin,
         denoise)
@@ -287,6 +291,10 @@ def kernel_table(dev, st) -> list:
         err = float((sk - sp).abs().max())
         return err, (torch.equal(ck, cp) and bool(torch.isfinite(sk).all())
                      and err <= D_ATOL)
+
+    def bits(got, want):        # J: promote bits, J_MAX_MISMATCH may differ
+        return max_err(got, want), (got.dtype == want.dtype and int(
+            (got != want).sum()) <= J_MAX_MISMATCH)
 
     def tool(judge):            # H and I: their card tests' comparison
         return lambda got, want: (max_err(got, want), judge())
@@ -391,6 +399,26 @@ def kernel_table(dev, st) -> list:
                             + H_FULL * (4 + 8 + 4)) + H_FULL * 8,
                       pn * (3 * k + 2 * k * 20) + pn * H_FULL * 60.0)))
 
+    # J: one tile of the all-pairs screen, a block of 64 templates of
+    # ``users_gallery`` (40 minutiae of 64 slots) against itself, 4,096
+    # pairs, under the screen's parameters and kernel I's statistics
+    gal = minutiae_from_numpy(users_gallery(32, 2, k=k, seed=13), dev)
+    block = torch.arange(64, device=dev)
+    j_args = anchor_args(
+        MinutiaeSet(*(x[block.repeat_interleave(64)] for x in gal)),
+        MinutiaeSet(*(x[block.repeat(64)] for x in gal)),
+        MatchParams(ransac_iter=SCREEN_ITERS, full_iters=H_FULL,
+                    min_inliers=6))
+    pn = j_args[0].valid.shape[0]
+    # the two templates' xy, orientation, type and validity, the weights
+    # and the reject in, the bits out; 8 instructions a valid-slot distance
+    # under each of the 8 anchors
+    dists = float((8 * j_args[0].valid.sum(-1) * j_args[1].valid.sum(-1)).sum())
+    rows.append((f"J recall anchors, P={pn}, K={k}", "anchor",
+                 lambda: cm.anchor_pairs_cuda(*j_args),
+                 lambda: _anchor_promote(*j_args), bits,
+                 (pn * (2 * k * (8 + 4 + 4 + 1) + 2 * k * 4 + 2), 8.0 * dists)))
+
     calls, out = 10, []
     for name, counter, kern, twin, rule, (nbytes, ops) in rows:
         err, within = rule(kern(), twin())
@@ -485,20 +513,22 @@ def check_golden(run: dict, golden: dict, name: str) -> None:
         fail(f"{name}: outside the golden's tolerances")
 
 
-def expected_chunks(ds, pairs, params, cascade: bool) -> tuple[int, int]:
-    """Kernel-D and kernel-H launches ``match_pair_indices`` makes for
-    ``pairs``: D once a screen chunk and once a full-pass chunk of the
-    promoted pairs, H once a full-pass chunk. Kernel I launches as D does."""
+def expected_chunks(ds, pairs, params,
+                    cascade: bool) -> tuple[int, int, int]:
+    """Kernel-D, kernel-H and kernel-J launches ``match_pair_indices`` makes
+    for ``pairs``: D once a screen chunk and once a full-pass chunk of the
+    promoted pairs, H once a full-pass chunk, J once a screen chunk. Kernel
+    I launches as D does."""
     from torch_card import CHUNK, SCREEN_ITERS
     from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
         screen_pair_indices)
     chunks = lambda n: -(-n // CHUNK)
     if not cascade or params.ransac_iter <= SCREEN_ITERS:
-        return chunks(len(pairs)), chunks(len(pairs))
+        return chunks(len(pairs)), chunks(len(pairs)), 0
     promoted = screen_pair_indices(ds, pairs, params, CHUNK, SCREEN_ITERS)
     print(f"    screen promoted {int(promoted.sum())} of {len(pairs)} pairs")
     full = chunks(int(promoted.sum()))
-    return chunks(len(pairs)) + full, full
+    return chunks(len(pairs)) + full, full, chunks(len(pairs))
 
 
 def golden_phase(dev, build) -> None:
@@ -531,10 +561,11 @@ def golden_phase(dev, build) -> None:
         run = protocol(ds, frr_p, far_p, cascade, peers=100, seed=42,
                        num_points=pr["num_points"])
         launches[cascade] = build.launches()
-        (dg, hg), (di, hi) = (expected_chunks(ds, run["g_pairs"], frr_p, cascade),
-                              expected_chunks(ds, run["i_pairs"], far_p, cascade))
+        (dg, hg, jg), (di, hi, ji) = (
+            expected_chunks(ds, run["g_pairs"], frr_p, cascade),
+            expected_chunks(ds, run["i_pairs"], far_p, cascade))
         want = {**dict.fromkeys(build.KERNELS, 0), "match": dg + di,
-                "finish": hg + hi, "sample": dg + di}
+                "finish": hg + hi, "sample": dg + di, "anchor": jg + ji}
         print(f"    launches {launches[cascade]}; expected {want}")
         if launches[cascade] != want:
             fail(f"cascade={cascade}: launch counts {launches[cascade]}, "
@@ -682,7 +713,8 @@ def gabor_phase(dev, build, card, x, run_path, off_run_path) -> dict:
     launches = build.launches()
     print(f"  launches in one run with Gabor on: {launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0,
+                "anchor": 0}
     if launches != expected:
         fail(f"Gabor path launch counts {launches}, expected {expected}")
     iters = 3
@@ -762,7 +794,8 @@ def large_frame_file_phase(dev, build) -> None:
           f"{stats['reader']}); launches {launches}; skeleton px per image "
           f"{skel}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0,
+                "anchor": 0}
     if stats["num_images"] != 4 or tuple(stats["canonical_shape"]) != (
             2048, 1024):
         fail("large-frame run: images or canonical shape")
@@ -1308,11 +1341,13 @@ def gallery_phase(dev, build, card, mesh) -> dict:
     same = labels[pairs[:, 0]] == labels[pairs[:, 1]]
     nb = -(-n // GALLERY_BLOCK)
     tiles = nb * (nb + 1) // 2
+    calls = -(-tiles // (G._SCREEN_PAIRS // GALLERY_BLOCK ** 2))
     chunks = lambda k: -(-k // GALLERY_CHUNK)
     gib = lambda b: b / 2 ** 30
     print(f"  {n} templates ({GALLERY_USERS} users x {GALLERY_SAMPLES}), "
           f"{len(pairs)} unique pairs, {int(same.sum())} genuine; mesh "
-          f"{mesh.devices}; screen: {tiles} tiles of {GALLERY_BLOCK ** 2} pairs")
+          f"{mesh.devices}; screen: {tiles} tiles of {GALLERY_BLOCK ** 2} pairs "
+          f"in {calls} calls")
 
     def screen_params(params, iters):
         """all_pairs_unique's screen parameters for a full pass ``params``."""
@@ -1344,7 +1379,7 @@ def gallery_phase(dev, build, card, mesh) -> dict:
         peak = torch.cuda.max_memory_allocated()
         promoted = promoted_slots(gal, params, anchors) if cascade else None
         full = chunks(int(promoted.sum()) if cascade else len(pairs))
-        want = tiles + full if cascade else full
+        want = calls + full if cascade else full
         g_mean, i_mean = scores[same].mean(), scores[~same].mean()
         share = (f"promoted {int(promoted.sum())} ({promoted.mean():.4%}); "
                  if cascade else "")
@@ -1352,11 +1387,12 @@ def gallery_phase(dev, build, card, mesh) -> dict:
               f"{share}kernel D launches {launches['match']} (expected "
               f"{want}); peak device memory {gib(peak):.3f} GiB; genuine "
               f"mean {g_mean:.4f}, impostor mean {i_mean:.6f}")
+        anchored = calls if cascade and anchors else 0
         if launches != {**dict.fromkeys(build.KERNELS, 0), "match": want,
-                        "finish": full, "sample": want}:
+                        "finish": full, "sample": want, "anchor": anchored}:
             fail(f"gallery {name}: launch counts {launches}, expected {want} "
-                 f"kernel-D and kernel-I calls, {full} kernel-H calls and "
-                 f"nothing else")
+                 f"kernel-D and kernel-I calls, {full} kernel-H calls, "
+                 f"{anchored} kernel-J calls and nothing else")
         if scores.shape != (len(pairs),) or not np.isfinite(scores).all():
             fail(f"gallery {name}: scores' shape or values")
         if cascade and (scores[~promoted] != 0).any():
@@ -2635,9 +2671,10 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
         d = sum(r["launches"]["match"] for r in ranks)
         h = sum(r["launches"]["finish"] for r in ranks)
         i_launches = sum(r["launches"]["sample"] for r in ranks)
+        j_launches = sum(r["launches"]["anchor"] for r in ranks)
         other = {k: sum(r["launches"][k] for r in ranks)
                  for k in build.KERNELS if k not in ("match", "finish",
-                                                     "sample")}
+                                                     "sample", "anchor")}
         r0 = ranks[0]
         print(f"  {n} rank(s) over {r0['backend']} on "
               f"{', '.join(r['device'] for r in ranks)}: launch "
@@ -2652,9 +2689,11 @@ def multi_gpu_phase(dev, build, card, gal) -> dict:
               f"all-reduce of the SSL gradient "
               f"{max(r['reduce_ms'] for r in ranks):.3f} ms; kernel D "
               f"launches summed over ranks {d}")
-        if d <= 0 or h <= 0 or i_launches != d or any(other.values()):
+        if d <= 0 or h <= 0 or i_launches != d or j_launches <= 0 \
+                or any(other.values()):
             fail(f"multi-GPU {n} ranks: kernel D launches {d}, kernel H "
-                 f"{h}, kernel I {i_launches}, others {other}")
+                 f"{h}, kernel I {i_launches}, kernel J {j_launches}, "
+                 f"others {other}")
         return ranks, secs, d
 
     ranks, secs, d = launch(w, None, MULTI_TIMEOUT)
@@ -2747,7 +2786,8 @@ def main() -> None:
     main_launches = build.launches()
     print(f"  launches in one run: {main_launches}")
     expected = {"clahe": 3, "cc": 4, "thin": 1, "match": 0, "nlm": 1,
-                "binarize": 1, "morph": 1, "finish": 0, "sample": 0}
+                "binarize": 1, "morph": 1, "finish": 0, "sample": 0,
+                "anchor": 0}
     if main_launches != expected:
         fail(f"main path launch counts {main_launches}, expected {expected}")
     if res.skeleton.shape != x.shape or res.skeleton.dtype != torch.bool:
@@ -2859,7 +2899,7 @@ def main() -> None:
 
     # each kernel's launches on the paths above (their counts set to 0 just
     # before each and read just after)
-    matcher = ("match", "finish", "sample")
+    matcher = ("match", "finish", "sample", "anchor")
     launches = {
         "file_pipeline": {k: fp["launches"][
             "matching" if k in matcher else "preprocessing"][k]
@@ -2874,7 +2914,7 @@ def main() -> None:
         "multi_gpu": {"match": multi["launches"]},
     }
     # each row's launches on its kernel's path: the main path for the
-    # preprocessing kernels, the file pipeline's matching for D, H and I
+    # preprocessing kernels, the file pipeline's matching for D, H, I and J
     for row in table:
         row["main_path_launches"] = main_launches[row["counter"]]
         row["file_pipeline_launches"] = launches["file_pipeline"][row["counter"]]

@@ -32,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # Every kernel source of the port; each is compiled into the one library.
 SOURCES = ("clahe.cu", "cc.cu", "thin.cu", "match.cu", "nlm.cu",
-           "binarize.cu", "morph.cu", "finish.cu", "sample.cu")
+           "binarize.cu", "morph.cu", "finish.cu", "sample.cu", "anchor.cu")
 # Headers the sources include; they are part of the library's hash.
 HEADERS = ("packed_words.cuh", "wrap_angle.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -40,7 +40,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 KERNELS = ("clahe", "cc", "thin", "match", "nlm", "binarize", "morph",
-           "finish", "sample")
+           "finish", "sample", "anchor")
 for _kernel in KERNELS:
     COUNTERS.setdefault(f"kernel.{_kernel}", 0)
 
@@ -94,6 +94,9 @@ _SIGNATURES = {
     "mbfp_sample_hypotheses": (*(_P,) * 24, _I, _I, _I, _I, _I, _P),
     # x, out, rows, k, chunk, stream (kernel I's scans alone, for checks)
     "mbfp_scan_rows": (_P, _P, _I, _I, _I, _P),
+    # xy, orientation, type, valid of A and of B; wa, wb, reject; promote;
+    # p, k, dist, orient, use_type, min_inliers, stream
+    "mbfp_anchor_promote": (*(_P,) * 12, _I, _I, _F, _F, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

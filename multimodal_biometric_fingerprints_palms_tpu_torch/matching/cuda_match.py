@@ -2,9 +2,11 @@
 the per-pair statistics and hypothesis sampling: kernel I (``csrc/sample.cu``),
 whose plain twin is ``ransac._pair_stats`` followed by
 ``ransac.sample_hypotheses``; the finish: kernel H (``csrc/finish.cu``), whose
-plain twin is ``ransac._finish_match``; and the matcher's batch entry points
-built on them (port of ``matching/pallas_match.py`` and of the batch
-functions of ``matching/ransac.py``).
+plain twin is ``ransac._finish_match``; the cascade screen's recall anchors:
+kernel J (``csrc/anchor.cu``), whose plain twin is ``ransac._anchor_promote``;
+and the matcher's batch entry points built on them (port of
+``matching/pallas_match.py`` and of the batch functions of
+``matching/ransac.py``).
 
 Kernel D replaces the TPU kernels ``hypothesis_scores_pallas_grouped``
 (``_grouped_kernel``) and ``hypothesis_scores_pallas`` (``_match_kernel``),
@@ -21,11 +23,12 @@ so no invalid pairing passes the distance gate and no mask is needed. The
 plain twin stages that as feature planes (``_features``); the kernel reads
 the matcher's own tensors and displaces on load, so a call is one launch.
 
-``sample_pairs``, ``hypothesis_scores`` and ``finish_match`` dispatch on
-the device: CPU tensors run the plain twin, CUDA tensors launch the kernel;
-anything else raises. Every matcher entry point samples through
-``sample_pairs`` and scores through ``hypothesis_scores``, and the full pass
-finishes through ``finish_match``, so there is one scoring route on every
+``sample_pairs``, ``hypothesis_scores``, ``finish_match`` and
+``anchor_pairs`` dispatch on the device: CPU tensors run the plain twin, CUDA
+tensors launch the kernel; anything else raises. Every matcher entry point
+samples through ``sample_pairs`` and scores through ``hypothesis_scores``,
+the full pass finishes through ``finish_match`` and the screen's anchors
+run through ``anchor_pairs``, so there is one scoring route on every
 device: the JAX package's XLA route
 (``ransac.match_pairs_batch``, ``raw ** 0.75``) and its Pallas route
 compute the same results within the tests' tolerances, and the port
@@ -42,15 +45,15 @@ import torch
 from ..features.minutiae import MinutiaeSet
 from ..kernels import build as _build
 from ..utils.profiling import count, span, traced
-from .ransac import (MatchParams, MatchResult, _cos_sin, _finish_match, _fma,
-                     _NN_Q, _NN_SAT, _pair_stats, _take, anchor_promote,
+from .ransac import (MatchParams, MatchResult, _anchor_promote, _cos_sin,
+                     _finish_match, _fma, _NN_Q, _NN_SAT, _pair_stats, _take,
                      hypothesis_uniforms, sample_hypotheses)
 
 # Pairs and hypotheses per step of the plain twin: the fma emulation's
 # float64 (512, 25, K, K) temporaries are 0.42 GB each at K=64.
 _PAIR_CHUNK = 512
 _HYP_CHUNK = 25
-_MAX_K = 128           # kernels D, H and I (D: 7 index bits under the quantized distance)
+_MAX_K = 128           # kernels D, H, I and J (D, J: 7 index bits under the quantized distance)
 _HYP_BLOCK = 32        # kernel D: hypotheses per block, grid (P, ceil(H/32))
 
 
@@ -359,10 +362,9 @@ def match_minutiae_pair(a: MinutiaeSet, b: MinutiaeSet,
     return MatchResult(*(x[0] for x in r))
 
 
-@traced("match.batch")
-def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
-                              p: MatchParams) -> torch.Tensor:
-    """Cascade screen, (P,) bool: promote a pair when any hypothesis scores
+def _screen(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams):
+    """The sampled screen of (P,) pairs and the statistics it sampled with:
+    (hit, wa, wb, reject). A pair's hit is set when any hypothesis scores
     above 0 or reaches ``p.min_inliers`` (the caller relaxes it), minus the
     early rejects the full pass would zero anyway. No finish.
 
@@ -377,20 +379,74 @@ def screen_pairs_batch_kernel(a: MinutiaeSet, b: MinutiaeSet,
                                            possible, p)
     hit = ((scores.amax(dim=-1) > 0.0)
            | (counts.amax(dim=-1) >= p.min_inliers))
-    return hit & ~reject
+    return hit & ~reject, wa, wb, reject
+
+
+def anchor_pairs_cuda(a: MinutiaeSet, b: MinutiaeSet, wa, wb, reject,
+                      p: MatchParams) -> torch.Tensor:
+    """Kernel J on CUDA tensors: one launch for the recall anchors of (P, K)
+    pairs given their statistics; same contract as
+    ``ransac._anchor_promote``."""
+    pnum, k = a.valid.shape
+    if k > _MAX_K or k & (k - 1):
+        raise ValueError(f"K={k} must be a power of two <= {_MAX_K}")
+    if a.xy.shape != (pnum, k, 2) or b.xy.shape != (pnum, k, 2) or any(
+            x.shape != (pnum, k) for x in (a.orientation, a.minutia_type,
+                                           b.orientation, b.minutia_type,
+                                           b.valid, wa, wb)) \
+            or reject.shape != (pnum,):
+        raise ValueError("inconsistent pair shapes")
+    if pnum >= 2 ** 31:
+        raise ValueError(f"P={pnum} out of range")
+    dev = a.xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"anchor_pairs_cuda needs a CUDA tensor, got {dev}")
+    if any(x.device != dev for x in (*a, *b, wa, wb, reject)):
+        raise ValueError("anchor_pairs_cuda needs every tensor on one device")
+    out = torch.empty(pnum, dtype=torch.bool, device=dev)
+    if pnum == 0:
+        return out
+    f32, i32 = torch.float32, torch.int32
+    args = [_as(x, dt) for ms in (a, b)
+            for x, dt in ((ms.xy, f32), (ms.orientation, f32),
+                          (ms.minutia_type, i32), (ms.valid, torch.bool))]
+    args += [_as(wa, f32), _as(wb, f32), _as(reject, torch.bool)]
+    rc = _build.load_library().mbfp_anchor_promote(
+        *(x.data_ptr() for x in args), out.data_ptr(), pnum, k,
+        p.dist_thresh, p.orient_thresh, int(bool(p.use_type)),
+        int(p.min_inliers), _build.current_stream(a.xy))
+    _build.check(rc, "mbfp_anchor_promote")
+    count("kernel.anchor")
+    return out
+
+
+@traced("match.anchor")
+def anchor_pairs(a: MinutiaeSet, b: MinutiaeSet, wa, wb, reject,
+                 p: MatchParams) -> torch.Tensor:
+    """The screen's recall anchors of (P, K) pairs given their weights and
+    early reject (``sample_pairs``' ``wa``, ``wb``, ``reject``): CPU tensors
+    run ``ransac._anchor_promote``, CUDA tensors launch kernel J; span
+    ``match.anchor``."""
+    if a.xy.device.type == "cpu":
+        return _anchor_promote(a, b, wa, wb, reject, p)
+    return anchor_pairs_cuda(a, b, wa, wb, reject, p)
 
 
 def screen_promote_batch(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
                          anchors: bool = True) -> torch.Tensor:
     """Cascade-screen promote bits for (P,) pairs: the sampled screen
-    (``screen_pairs_batch_kernel``) OR-ed with ``ransac.anchor_promote``.
-    The one screen every cascade call site shares (pair-index matching and
-    the gallery's pair-list and blocked screens), so their promotion sets
-    stay identical. ``anchors=False`` is the ablation switch that measures
-    the sampled screen alone.
+    (``_screen``) OR-ed with the recall anchors
+    (``ransac.anchor_promote``; ``anchor_pairs``, kernel J on a card),
+    which read the statistics the screen sampled with: one ``sample_pairs``
+    a call. The one screen every cascade call site shares (pair-index
+    matching and the gallery's pair-list and blocked screens), so their
+    promotion sets stay identical. ``anchors=False`` is the ablation switch
+    that measures the sampled screen alone. Spans ``match.batch`` (the
+    sampled screen's) then ``match.anchor``.
 
     This is the JAX package's accelerator rule. Its CPU route
     (``use_pallas=False``) screens with the full matcher instead; the port
     has the one rule on every device."""
-    base = screen_pairs_batch_kernel(a, b, p)
-    return base | anchor_promote(a, b, p) if anchors else base
+    with span("match.batch"):
+        base, wa, wb, reject = _screen(a, b, p)
+    return base | anchor_pairs(a, b, wa, wb, reject, p) if anchors else base

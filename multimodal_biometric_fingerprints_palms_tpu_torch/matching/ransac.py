@@ -29,7 +29,6 @@ import torch
 
 from ..features.minutiae import MinutiaeSet
 from ..utils import threefry
-from ..utils.profiling import traced
 
 _BIG = 1e9
 
@@ -276,7 +275,6 @@ def _pair_stats(a: MinutiaeSet, b: MinutiaeSet):
     return wa, wb, na, nb, possible, reject
 
 
-@traced("match.anchor")
 def anchor_promote(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
                    n_anchors: int = 8) -> torch.Tensor:
     """(P,) deterministic recall-only anchors for the cascade screen.
@@ -287,7 +285,24 @@ def anchor_promote(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
     any valid anchor reaches ``min_inliers``. OR-ed into the sampled screen
     it only ever promotes more pairs; the early rejects still gate it."""
     wa, wb, _, _, _, reject = _pair_stats(a, b)
+    return _anchor_promote(a, b, wa, wb, reject, p, n_anchors)
 
+
+def _anchor_promote(a: MinutiaeSet, b: MinutiaeSet, wa, wb, reject,
+                    p: MatchParams, n_anchors: int = 8) -> torch.Tensor:
+    """``anchor_promote`` given the pairs' weights ``wa``, ``wb`` (P, K)
+    and early ``reject`` (P,), as ``_pair_stats`` or kernel I computes
+    them: the CPU route of the screen's anchors and the plain twin of
+    kernel J (``csrc/anchor.cu``)."""
+    ok, inlier = _anchor_inliers(a, b, wa, wb, p, n_anchors)
+    counts = inlier.sum(dim=-1)
+    return (ok & (counts >= p.min_inliers)).any(dim=-1) & ~reject
+
+
+def _anchor_inliers(a: MinutiaeSet, b: MinutiaeSet, wa, wb, p: MatchParams,
+                    n_anchors: int = 8):
+    """The anchors of (P, K) pairs and every A slot's inlier flag under
+    each: (ok (P, T), both anchor slots valid; inlier (P, T, K))."""
     def top(ms, w):
         key = torch.where(ms.valid, w, -1.0)
         idx = torch.sort(key, dim=-1, descending=True,
@@ -300,9 +315,7 @@ def anchor_promote(a: MinutiaeSet, b: MinutiaeSet, p: MatchParams,
     theta = _angle_diff(ori_b, ori_a)                            # (P, T)
     t = xy_b - _apply_rigid(xy_a, theta, 0.0)
     _, inlier, _ = _match_with_transform(a, b, wa, wb, theta, t, p)
-    counts = inlier.sum(dim=-1)
-    return ((valid_a & valid_b & (counts >= p.min_inliers)).any(dim=-1)
-            & ~reject)
+    return valid_a & valid_b, inlier
 
 
 def _finish_match(a: MinutiaeSet, b: MinutiaeSet, wa, wb, possible, na, nb,

@@ -3,8 +3,8 @@
 Genuine and impostor pairs are index arrays into one (S, K) gallery of
 templates on a device, matched in chunks. There is one route on every
 device, the one the JAX package takes on its accelerator: the cascade
-screen is ``cuda_match.screen_promote_batch`` (``screen_pairs_batch_kernel
-| anchor_promote``) and the full pass is ``cuda_match.match_pairs_batch``;
+screen is ``cuda_match.screen_promote_batch`` (the sampled screen OR the
+recall anchors) and the full pass is ``cuda_match.match_pairs_batch``;
 only the hypothesis-scoring wrapper looks at the device (kernel D on CUDA,
 its plain twin on the CPU). The JAX package's CPU route
 (``use_pallas=False``) screens with the full matcher instead

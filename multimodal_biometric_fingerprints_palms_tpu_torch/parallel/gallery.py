@@ -31,9 +31,10 @@ device nothing is padded.
 
 Two TPU workarounds of the JAX package are not carried over. A template
 gather is ``index_select``, not a one-hot matmul. The blocked screen scores
-a whole (block x block) tile a matcher call, where the JAX package split it
-into 512-pair pieces to keep an XLA compile in bounds: the port compiles
-nothing, and at 512 pairs a call the matcher is bound by its launches.
+whole (block x block) tiles, up to 65,536 pairs, a matcher call, where the
+JAX package split each tile into 512-pair pieces to keep an XLA compile in
+bounds: the port compiles nothing, and at 512 pairs a call the matcher is
+bound by its launches.
 ``use_pallas`` is dropped (one route on every device, as in
 ``matching/runner.py``); the JAX package's CPU route screens with the full
 matcher, the port everywhere with the accelerator rule.
@@ -56,6 +57,11 @@ from .mesh import Mesh, gallery_sharding, replicated
 # the sampling's (pairs, H, K) float32 tensors would take 5 GB each at
 # H=300; at 4,096 pairs the full pass keeps the card busy (PERF.md).
 _PAIR_BATCH = 4096
+# Pairs a screen call in ``shard_blocks_screen``, in whole tiles (16 of
+# 64 x 64): one tile a call left the card idle about two thirds of the
+# screen while the host made the call (0.65 ms of host time against
+# 0.31 ms of device time on an H100), and the host's pace set the sweep's.
+_SCREEN_PAIRS = 65536
 
 
 class GalleryShard(MinutiaeSet):
@@ -233,8 +239,9 @@ def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
                         anchors: bool = True):
     """Cascade screen over ALL unique pairs in (block x block) template
     tiles of the gallery padded to a multiple of ``block``: each tile's
-    full cross product is one ``screen_promote_batch`` call, the block
-    pairs split over the mesh's ranks.
+    full cross product, whole tiles up to ``_SCREEN_PAIRS`` pairs a
+    ``screen_promote_batch`` call, the block pairs split over the mesh's
+    ranks.
 
     Returns (block_pairs (NBP, 2), mask (NBP, block*block)) as numpy:
     block pairs (bi <= bj) in ``np.triu_indices`` order, and mask[r, k]
@@ -242,23 +249,30 @@ def shard_blocks_screen(gallery: MinutiaeSet, mesh: Mesh,
     side repeat-major, the B side tile-minor.
 
     Span ``gallery.screen``, ending after the mask's copy to the host, and
-    one ``gallery.screen_tile`` a tile; counts ``gallery.screen_pairs``:
-    the block x block pairs of each tile this rank scores."""
+    one ``gallery.screen_call`` a screen call; counts
+    ``gallery.screen_pairs``: the block x block pairs of each tile this
+    rank scores."""
     gpad = pad_gallery(_whole(gallery, mesh), block)
     nb = gpad.valid.shape[0] // block
     bi, bj = np.triu_indices(nb, k=0)
     bp = np.stack([bi, bj], axis=1).astype(np.int32)
-    k = torch.arange(block * block, device=_device(gpad))
+    dev = _device(gpad)
+    k = torch.arange(block * block, device=dev)
     il, jl = k // block, k % block
+    mine = torch.as_tensor(_share(bp, mesh, 1), dtype=torch.int64,
+                           device=dev)
+    step = max(1, _SCREEN_PAIRS // (block * block))
     rows = []
-    for r, c in _share(bp, mesh, 1):
-        with span("gallery.screen_tile"):
-            count("gallery.screen_pairs", block * block)
-            rows.append(screen_promote_batch(
-                take_templates(gpad, int(r) * block + il),
-                take_templates(gpad, int(c) * block + jl),
-                params, anchors))
-    return bp, gather_rows(torch.stack(rows), mesh)[:len(bp)].cpu().numpy()
+    for s in range(0, mine.shape[0], step):
+        r, c = mine[s:s + step, :1], mine[s:s + step, 1:]
+        with span("gallery.screen_call"):
+            count("gallery.screen_pairs", r.shape[0] * block * block)
+            bits = screen_promote_batch(
+                take_templates(gpad, (r * block + il).reshape(-1)),
+                take_templates(gpad, (c * block + jl).reshape(-1)),
+                params, anchors)
+        rows.append(bits.view(-1, block * block))
+    return bp, gather_rows(torch.cat(rows), mesh)[:len(bp)].cpu().numpy()
 
 
 @traced("gallery.all_pairs")
@@ -284,11 +298,10 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
     and ``gallery.full_pass``; counts ``gallery.promoted_pairs``."""
     gallery = _whole(gallery, mesh)
     n = gallery.valid.shape[0]
-    pairs = unique_pairs(n)
     if not (cascade and params.ransac_iter > screen_iters):
         with span("gallery.full_pass"):
-            s, _ = shard_pairs_scores(gallery, pairs, mesh, params, axis_name,
-                                      chunk)
+            s, _ = shard_pairs_scores(gallery, unique_pairs(n), mesh, params,
+                                      axis_name, chunk)
         return s.astype(np.float64)
     screen_p = params._replace(
         ransac_iter=screen_iters,
@@ -300,14 +313,15 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
     with span("gallery.promote_index"):
         # promoted (block pair, local k) entries back to unique-pair slots:
         # k = i_local * block + j_local
-        il, jl = np.divmod(np.arange(block * block), block)
-        gi = bp[:, :1] * block + il[None, :]
-        gj = bp[:, 1:] * block + jl[None, :]
-        keep = mask & (gi < gj) & (gj < n)
-        ii, jj = gi[keep].astype(np.int64), gj[keep].astype(np.int64)
+        r, k = np.nonzero(mask)
+        il, jl = np.divmod(k, block)
+        gi = bp[r, 0].astype(np.int64) * block + il
+        gj = bp[r, 1].astype(np.int64) * block + jl
+        keep = (gi < gj) & (gj < n)
+        ii, jj = gi[keep], gj[keep]
         pos = ii * (2 * n - ii - 1) // 2 + (jj - ii - 1)
         count("gallery.promoted_pairs", ii.size)
-    out = np.zeros(pairs.shape[0], np.float64)
+    out = np.zeros(n * (n - 1) // 2, np.float64)
     if ii.size:
         with span("gallery.full_pass"):
             s1, _ = shard_pairs_scores(gallery, np.stack([ii, jj], axis=1),

@@ -283,4 +283,4 @@ def test_main_path_launches_each_kernel_as_counted(stages):
     run_path(stages.x)
     assert build.launches() == {"clahe": 3, "cc": 4, "thin": 1, "match": 0,
                                 "nlm": 1, "binarize": 1, "morph": 1,
-                                "finish": 0, "sample": 0}
+                                "finish": 0, "sample": 0, "anchor": 0}

@@ -319,6 +319,32 @@ def test_blocks_screen_mask_matches_the_accelerator_rule(anchors):
     assert (anc & ~base).any()          # the anchors promote pairs of their own
 
 
+@pytest.mark.parametrize("tiles_a_call", [1, 2])
+def test_blocks_screen_mask_does_not_depend_on_the_tiles_a_call(
+        monkeypatch, tiles_a_call):
+    """The blocked screen takes whole tiles, up to ``_SCREEN_PAIRS`` pairs,
+    a ``screen_promote_batch`` call (all three tiles of the case in one call
+    at the default); at one and at two tiles a call it makes three and two
+    calls, the last one short, and gives the same mask."""
+    tset, _, tp, block, _, _, base, anc = _mask_case()
+    shipped, sizes = tg.screen_promote_batch, []
+
+    def spy(a, b, p, anchors):
+        sizes.append(a.valid.shape[0])
+        return shipped(a, b, p, anchors)
+
+    monkeypatch.setattr(tg, "screen_promote_batch", spy)
+    tg.shard_blocks_screen(tset, _cpu(), tp, block=block)
+    assert sizes == [3 * block * block]
+    monkeypatch.setattr(tg, "_SCREEN_PAIRS", tiles_a_call * block * block)
+    sizes.clear()
+    _, mask = tg.shard_blocks_screen(tset, _cpu(), tp, block=block)
+    want = ([block * block] * 3 if tiles_a_call == 1
+            else [2 * block * block, block * block])
+    assert sizes == want
+    np.testing.assert_array_equal(mask.ravel(), base | anc)
+
+
 # --- identification ---------------------------------------------------------
 
 @functools.cache

@@ -19,7 +19,7 @@ run their plain twins (CPU tensors). Tolerances, with their reasons:
   ~1.3% of angles, which moves t by up to 2 ulps (6.1e-5 px measured). A
   different selected minutia moves it by pixels.
 
-Marked ``card``: kernels D, H and I against their plain twins on the card.
+Marked ``card``: kernels D, H, I and J against their plain twins on the card.
 """
 
 from __future__ import annotations
@@ -251,11 +251,9 @@ def test_screen_promote_batch_matches_jax():
     np.testing.assert_array_equal(tcm.screen_promote_batch(ta, tb, tp).numpy(),
                                   ref)
     np.testing.assert_array_equal(ref, [True] * 4 + [False] * 4)
-    base = tcm.screen_pairs_batch_kernel(ta, tb, tp).numpy()
+    base = tcm.screen_promote_batch(ta, tb, tp, anchors=False).numpy()
     np.testing.assert_array_equal(
         base, _np(jpm.screen_pairs_batch_pallas(ja, jb, jp, interpret=True)))
-    np.testing.assert_array_equal(
-        tcm.screen_promote_batch(ta, tb, tp, anchors=False).numpy(), base)
 
 
 def _split(ms: TSet, cuts) -> list:
@@ -940,8 +938,8 @@ def test_match_pairs_batch_samples_through_the_dispatcher(monkeypatch):
     a, b = _sample_pairs_input(pnum=8)
     p = tr.MatchParams(ransac_iter=16)
     got = tcm.match_pairs_batch(a, b, p)
-    tcm.screen_pairs_batch_kernel(a, b, p._replace(ransac_iter=8,
-                                                   full_iters=16))
+    tcm.screen_promote_batch(a, b, p._replace(ransac_iter=8, full_iters=16),
+                             anchors=False)
     assert seen == [16, 8]
     monkeypatch.setattr(tcm, "sample_pairs", shipped)
     for x, y in zip(got, tcm.match_pairs_batch(a, b, p)):
@@ -1068,3 +1066,428 @@ def test_a_second_match_call_makes_no_synchronising_call(card):
 def test_identify_through_kernel_i_equals_the_plain_route(card):
     r = _sample_tool().identify_against_plain(card)
     assert r["differ"] == 0 and r["mates_top1"] == 3, r
+
+
+# --- kernel J, the screen's recall anchors ------------------------------------
+
+SCREEN_P = dict(ransac_iter=SCREEN_ITERS, full_iters=H_FULL, min_inliers=6)
+
+
+def _j_emulated(a, b, wa, wb, reject, p, rescan_ties=True):
+    """Kernel J's search, emulated step by step in float32 on the CPU: the
+    anchors by a rank count; each valid A slot's distances in the matmul
+    form with fma(-2, ab, aa); the quantization by a saturated product with
+    2^-10 and + 48; the integer key over the valid B slots only (in their
+    order, so a slot's index orders like its compacted position); one
+    candidate at the twin's 1e9 under the lowest invalid index for all
+    invalid slots; `q >= 2^18 - 1 -> (2^18 - 1, 0)`; and where the twin's
+    float key q * K + j rounds (K = 128, q >= 2^17) and the gate could pass,
+    the twin's float keys with first-index ties."""
+    pnum, k = a.valid.shape
+    n = min(8, k)
+    idx = torch.arange(k)
+
+    def ranks(ms, w):
+        key = torch.where(ms.valid, w, -1.0)
+        kj, ki = key[:, None, :], key[:, :, None]
+        lower = idx[None, None, :] < idx[None, :, None]
+        ahead = torch.where(kj.isnan(), ~ki.isnan() | lower,
+                            ~ki.isnan() & ((kj > ki) | ((kj == ki) & lower)))
+        return torch.argsort(ahead.sum(dim=-1), dim=-1)[:, :n]
+
+    sa, sb = ranks(a, wa), ranks(b, wb)
+    theta = tr._angle_diff(tr._take(b.orientation, sb),
+                           tr._take(a.orientation, sa))              # (P, T)
+    c, s = tr._cos_sin(theta)
+    xa, xb = tr._take(a.xy, sa), tr._take(b.xy, sb)
+    rx = tr._fma(c, xa[..., 0], -(s * xa[..., 1])) + 0.0
+    ry = tr._fma(s, xa[..., 0], c * xa[..., 1]) + 0.0
+    tx, ty = xb[..., 0] - rx, xb[..., 1] - ry
+    ok = tr._take(a.valid, sa) & tr._take(b.valid, sb)
+    ax, ay = a.xy[:, None, :, 0], a.xy[:, None, :, 1]                # (P, 1, K)
+    c3, s3 = c[..., None], s[..., None]
+    px = tr._fma(c3, ax, -(s3 * ay)) + tx[..., None]                 # (P, T, K)
+    py = tr._fma(s3, ax, c3 * ay) + ty[..., None]
+    aa = tr._fma(py, py, px * px)
+    bx, by = b.xy[:, None, None, :, 0], b.xy[:, None, None, :, 1]
+    bb = tr._fma(by, by, bx * bx)
+    ab = tr._fma(py[..., None], by, px[..., None] * bx)             # (P, T, K, K)
+    d2 = tr._fma(torch.full_like(ab, -2.0), ab, aa[..., None]) + bb
+    v = torch.clamp(d2 * 2.0 ** -10, 0.0, 1.0) + 48.0
+    q_all = v.view(torch.int32).to(torch.int64) - 0x42400000        # <= 2^18
+    key = torch.where(b.valid[:, None, None, :], q_all * 256 + idx, 2 ** 40)
+    best = key.min(dim=-1).values
+    q, j = best // 256, best % 256
+    sat = 2 ** 18 - 1
+    first_invalid = torch.where(b.valid.all(dim=-1), k,
+                                torch.argmin(b.valid.to(torch.uint8), dim=-1))
+    fi = first_invalid[:, None, None].expand_as(q)
+    take = (fi < k) & ((sat < q) | ((sat == q) & (fi < j)))
+    q, j = torch.where(take, sat, q), torch.where(take, fi, j)
+    qc = torch.clamp(q, max=sat)
+    d_c = torch.sqrt(qc.to(torch.float32) * 0.00390625)
+    rescan = (qc * k + (k - 1) >= 2 ** 24) & (d_c <= p.dist_thresh)
+    rescan &= rescan_ties
+    if bool(rescan.any()):
+        qq = torch.where(b.valid[:, None, None, :], torch.clamp(q_all, max=sat),
+                         sat).to(torch.float32)
+        code = qq * float(k) + idx.to(torch.float32)
+        cmin, cj = torch.min(code, dim=-1)
+        q = torch.where(rescan, torch.floor(cmin / float(k)).to(torch.int64), q)
+        j = torch.where(rescan, cj, j)
+    fix = ~rescan & (q >= sat)
+    q, j = torch.where(fix, sat, q), torch.where(fix, 0, j)
+    d = torch.sqrt(q.to(torch.float32) * 0.00390625)
+    ang = torch.abs(tr._angle_diff(a.orientation[:, None] + theta[..., None],
+                                   tr._take(b.orientation, j)))
+    inl = a.valid[:, None] & (d <= p.dist_thresh) & (ang <= p.orient_thresh)
+    if p.use_type:
+        inl &= a.minutia_type[:, None] == tr._take(b.minutia_type, j)
+    counts = inl.sum(dim=-1)
+    return ((ok & (counts >= p.min_inliers)).any(dim=-1) & ~reject, inl,
+            dict(rescan=int(rescan.sum()), stand_in=int(take.sum()),
+                 saturated=int(fix.sum())))
+
+
+def _float_key_tie():
+    """A K = 128 pair whose twin takes B slot 0 where the exact key takes
+    slot 127: A's 8 weightiest minutiae on a circle of 60 px about (100,
+    100) and a bifurcation at its centre; B the circle's copies in slots 1
+    to 8, a bifurcation 22.6276 px above the centre in slot 0 (q = 2^17 + 2)
+    and an ending 22.6275 px right of it in slot 127 (q = 2^17 + 1). Every
+    anchor is the identity, and the twin's float keys tie at
+    (2^17 + 2) * 128: q * 128 + 127 rounds up to it, and the first index
+    wins. With min_inliers 9 the centre decides: the twin promotes the
+    pair, the exact key would not."""
+    k, c = 128, 100.0
+    ang = np.arange(8) * (np.pi / 4)
+    ring = np.stack([c + 60 * np.cos(ang), c + 60 * np.sin(ang)], -1)
+    q_ring = np.linspace(0.9, 0.55, 8)
+
+    def tmpl(slots):
+        d = dict(xy=np.zeros((1, k, 2), np.float32),
+                 orientation=np.full((1, k), 0.3, np.float32),
+                 minutia_type=np.zeros((1, k), np.int32),
+                 quality=np.zeros((1, k), np.float32),
+                 valid=np.zeros((1, k), bool))
+        for i, (xy, ty, q) in slots.items():
+            d["xy"][0, i], d["minutia_type"][0, i] = xy, ty
+            d["quality"][0, i], d["valid"][0, i] = q, True
+        d["coherence"] = d["angular_stability"] = d["quality"]
+        return minutiae_from_numpy(d)
+
+    a = tmpl({**{i: (ring[i], 0, q_ring[i]) for i in range(8)},
+              8: ((c, c), 1, 0.41)})
+    b = tmpl({**{i + 1: (ring[i], 0, q_ring[i]) for i in range(8)},
+              0: ((c, c + 22.627605438232422), 1, 0.4),
+              127: ((c + 22.62749671936035, c), 0, 0.4)})
+    return a, b, tr.MatchParams(**{**SCREEN_P, **FRR_GATES, "min_inliers": 9})
+
+
+def _j_sets(case):
+    """(A, B, MatchParams) of the CPU cases of kernel J's arithmetic."""
+    if case == "K=128, float-key tie":
+        return _float_key_tie()
+    if case == "weak templates":
+        a, b = _weak_templates()
+        return (minutiae_from_numpy(a), minutiae_from_numpy(b),
+                tr.MatchParams(**SCREEN_P))
+    if case.startswith("rigid"):
+        k = int(case.split("K=")[1].split(",")[0])
+        (_, ta), (_, tb) = _rigid_pairs(5, pnum=12, k=k, n=min(40, k),
+                                        impostors=6)
+        p = tr.MatchParams(**{**SCREEN_P, **(FRR_GATES if "FRR" in case
+                                             else {})})
+        return ta, tb, p
+    (_, ta), (_, tb) = _rigid_pairs(9, pnum=12, impostors=6)
+    g = torch.Generator().manual_seed(3)
+    if case == "scattered validity, no valid B":
+        keep = lambda v: v & (torch.rand(v.shape, generator=g) < 0.7)
+        ta, tb = ta._replace(valid=keep(ta.valid)), tb._replace(valid=keep(tb.valid))
+        tb.valid[2] = False
+        tb.valid[3, 9:] = False                  # fewer than 8 valid
+        ta.quality[4] = 0.7                      # tied weights
+        ta.coherence[4] = 0.7
+        ta.angular_stability[4] = 0.7
+        ta.minutia_type[4] = 0
+        return ta, tb, tr.MatchParams(**SCREEN_P)
+    # far from the origin: |a|^2 and |b|^2 near 6e8, an ulp of 64 px^2
+    off = torch.tensor([20000.0, -15000.0] if case.endswith("20,000")
+                       else [3000.0, 2000.0])
+    return (ta._replace(xy=ta.xy + off), tb._replace(xy=tb.xy + off),
+            tr.MatchParams(**SCREEN_P))
+
+
+J_CPU_CASES = ["weak templates", "rigid, K=64", "rigid, K=32",
+               "rigid, K=128", "rigid, K=128, FRR gates",
+               "K=128, float-key tie", "scattered validity, no valid B",
+               "offset 3,000", "offset 20,000"]
+
+
+@pytest.mark.parametrize("case", J_CPU_CASES)
+def test_kernel_j_search_emulated_equals_the_twin(case):
+    """Kernel J's search, emulated in float32 on the CPU (``_j_emulated``),
+    gives the twin's promote bits and every A slot's inlier flag under
+    every anchor on every case: the weak-template anchors,
+    rigid genuine and impostor pairs at K = 32, 64 and 128 (at K = 128
+    under FRR gates the twin's float keys round and the rescan runs; on the
+    float-key tie of ``_float_key_tie`` only the rescan gives the twin's
+    bit),
+    scattered validity with a template without a valid B slot, one with
+    fewer than 8 and tied weights, and coordinates 3,600 and 25,000 px from
+    the origin."""
+    a, b, p = _j_sets(case)
+    args = (a, b, *_j_stats(a, b), p)
+    want = tr._anchor_promote(*args)
+    got, inl, seen = _j_emulated(*args)
+    assert torch.equal(got, want), (case, seen)
+    assert torch.equal(inl, tr._anchor_inliers(a, b, *args[2:4], p)[1]), (
+        case, seen)
+    if case == "rigid, K=128, FRR gates":
+        assert seen["rescan"] > 0, seen
+    if case == "K=128, float-key tie":
+        assert want.tolist() == [True] and seen["rescan"] == 8, seen
+        assert _j_emulated(*args, rescan_ties=False)[0].tolist() == [False]
+    if case == "scattered validity, no valid B":
+        assert seen["stand_in"] > 0 and seen["saturated"] > 0, seen
+    if case in ("rigid, K=64", "weak templates"):
+        assert 0 < int(want.sum()) < len(want)
+
+
+def _j_stats(a, b):
+    wa, wb, _, _, _, reject = tr._pair_stats(a, b)
+    return wa, wb, reject
+
+
+def test_kernel_j_quantization_is_the_twins():
+    """fma(-2, ab, aa) is the twin's aa - 2.0 * ab (2 ab is exact), and
+    the saturated product with 2^-10 plus 48.0 leaves min(rint(max(d2, 0)
+    * 256), 2^18) in the low mantissa bits, whose minimum with 2^18 - 1 is
+    the twin's quantized distance, for every half step of d2 in [0, 1024]
+    with its neighbours, negatives and values far beyond."""
+    x = _rounding_inputs() / 256.0                      # d2, exact
+    x = torch.cat([x, -x[:1000], torch.tensor([0.0, -0.0, 1e-40, -1e-40])])
+    want = torch.clamp(torch.round(torch.clamp(x, min=0.0) * 256.0), max=_S)
+    v = torch.clamp(x * 2.0 ** -10, 0.0, 1.0) + 48.0
+    assert v.dtype == torch.float32
+    q = v.view(torch.int32) - 0x42400000
+    assert int(q.min()) == 0 and int(q.max()) == 2 ** 18
+    np.testing.assert_array_equal(torch.clamp(q, max=2 ** 18 - 1).numpy(),
+                                  want.numpy().astype(np.int32))
+    g = np.random.default_rng(31)
+    aa, ab = (torch.from_numpy(g.uniform(-3e8, 3e8, 200_000).astype(np.float32))
+              for _ in range(2))
+    got = tr._fma(torch.full_like(ab, -2.0), ab, aa)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  (aa - 2.0 * ab).numpy().view(np.uint32))
+
+
+def test_kernel_j_rank_count_is_the_stable_sort():
+    """The anchors' order, a rank count with NaN ahead of every number and
+    ties to the lower index, is ``torch.sort(descending=True, stable=True)``'s
+    on keys with ties, NaN, -1 for invalid slots and 0.0 against -0.0."""
+    g = torch.Generator().manual_seed(5)
+    key = torch.randint(0, 6, (64, 64), generator=g).to(torch.float32) / 4
+    key[key == 1.25] = -1.0
+    key[::7, ::5] = float("nan")
+    key[1::3, ::11] = -0.0
+    idx = torch.arange(64)
+    kj, ki = key[:, None, :], key[:, :, None]
+    lower = idx[None, None, :] < idx[None, :, None]
+    ahead = torch.where(kj.isnan(), ~ki.isnan() | lower,
+                        ~ki.isnan() & ((kj > ki) | ((kj == ki) & lower)))
+    order = torch.argsort(ahead.sum(dim=-1), dim=-1)
+    want = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    assert torch.equal(order, want)
+
+
+def test_anchor_pairs_sends_cpu_tensors_to_the_plain_twin(monkeypatch):
+    """The anchors' dispatcher runs ``ransac._anchor_promote`` on CPU
+    tensors, unchanged, inside the span ``match.anchor``, and launches
+    nothing: ``kernel.anchor`` stays 0."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import profiling
+    calls = []
+    shipped = tcm._anchor_promote
+
+    def spy(*args):
+        calls.append((profiling._stack()[-1].name, args[0].xy.device))
+        return shipped(*args)
+
+    monkeypatch.setattr(tcm, "_anchor_promote", spy)
+    a, b, p = _j_sets("rigid, K=64")
+    stats = _j_stats(a, b)
+    before = build.launches()
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = tcm.anchor_pairs(a, b, *stats, p)
+    profiling.clear()
+    assert calls == [("match.anchor", torch.device("cpu"))]
+    assert build.launches() == before and before["anchor"] == 0
+    want = tr.anchor_promote(a, b, p)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert 0 < int(want.sum()) < len(want)
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "k48", "k256", "shapes",
+                                  "reject"])
+def test_anchor_pairs_cuda_refuses_what_kernel_j_does_not_take(case):
+    """Kernel J's wrapper raises on a CPU or other non-CUDA tensor, on K
+    not a power of two or over 128 and on shapes that do not fit one
+    another (the weights' or the early reject's), before it launches
+    anything; the dispatcher raises on a non-CUDA, non-CPU device."""
+    before = build.launches()
+    dev = "cpu" if case == "cpu" else "meta"
+    a, b = _sample_pairs_input(dev, pnum=4, k=64 if case[0] == "k" else 32)
+    wa, wb = torch.zeros_like(a.quality), torch.zeros_like(b.quality)
+    reject = torch.zeros_like(a.valid[:, 0])
+    match = "CUDA tensor"
+    if case[0] == "k":
+        k = int(case[1:])
+        grow = lambda x: torch.zeros(x.shape[:1] + (k,) + x.shape[2:],
+                                     dtype=x.dtype, device="meta")
+        a, b = tr.MinutiaeSet(*map(grow, a)), tr.MinutiaeSet(*map(grow, b))
+        wa, wb = grow(wa), grow(wb)
+        match = "power of two"
+    elif case == "shapes":
+        wb = wb[:, :-1]                                  # one slot short
+        match = "inconsistent"
+    elif case == "reject":
+        reject = reject[:-1]                             # one pair short
+        match = "inconsistent"
+    p = tr.MatchParams(**SCREEN_P)
+    with pytest.raises(ValueError, match=match):
+        tcm.anchor_pairs_cuda(a, b, wa, wb, reject, p)
+    if case == "meta":
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tcm.anchor_pairs(a, b, wa, wb, reject, p)
+    assert build.launches() == before
+
+
+def test_screen_promote_batch_computes_the_statistics_once(monkeypatch):
+    """A screen call samples once and hands the weights and the early
+    reject to the anchors: ``_pair_stats`` runs once a call (it ran twice
+    before, once in the sampling and once in ``anchor_promote``), and the
+    promote bits are the sampled screen's OR the anchors'."""
+    seen = []
+    for mod in (tcm, tr):
+        shipped = mod._pair_stats
+
+        def spy(*args, _f=shipped):
+            seen.append(args[0].valid.shape)
+            return _f(*args)
+
+        monkeypatch.setattr(mod, "_pair_stats", spy)
+    (_, ta), (_, tb) = _rigid_pairs(3, pnum=8, impostors=4)
+    p = tr.MatchParams(**SCREEN_P)
+    got = tcm.screen_promote_batch(ta, tb, p)
+    assert seen == [(8, 64)]
+    base = tcm.screen_promote_batch(ta, tb, p, anchors=False)
+    anchors = tr.anchor_promote(ta, tb, p)
+    assert len(seen) == 3
+    assert torch.equal(got, base | anchors)
+
+
+@pytest.mark.parametrize("case", ["weak templates", "rigid, K=64",
+                                  "scattered validity, no valid B"])
+def test_plain_twin_fed_kernel_i_statistics_equals_anchor_promote(case):
+    """The twin fed the statistics ``sample_pairs`` returns (kernel I's on
+    a card, here its plain route) equals ``anchor_promote(a, b, p)``, which
+    computes its own."""
+    a, b, p = _j_sets(case)
+    wa, wb, _, _, _, reject, *_ = tcm.sample_pairs(a, b, p)
+    got = tr._anchor_promote(a, b, wa, wb, reject, p)
+    assert torch.equal(got, tr.anchor_promote(a, b, p))
+
+
+J_CARD_CASES = ["tile, K=64", "tile, K=32", "tile, K=128",
+                "tile, K=128, FRR gates", "P=1", "P=333", "P=4,096",
+                *J_CPU_CASES]
+
+
+def _j_plain(a, b, wa, wb, reject, p, chunk=512):
+    """The twin, ``chunk`` pairs at a time (each pair's bit is its own),
+    which bounds its float64 (pairs, 8, K, K) temporaries on the card."""
+    cut = lambda x, s: x[s:s + chunk]
+    return torch.cat([tr._anchor_promote(
+        tr.MinutiaeSet(*(cut(x, s) for x in a)),
+        tr.MinutiaeSet(*(cut(x, s) for x in b)),
+        cut(wa, s), cut(wb, s), cut(reject, s), p)
+        for s in range(0, a.valid.shape[0], chunk)])
+
+
+def _j_card_inputs(gallery, dev, case):
+    """(A, B, MatchParams) of a kernel J card case, on ``dev``."""
+    from torch_card import anchor_tile
+    ds, pairs, many = gallery
+    p = tr.MatchParams(**SCREEN_P)
+    if case.startswith("tile"):
+        k = int(case.split("K=")[1].split(",")[0])
+        a, b = anchor_tile(ds, first=k // 8, k=k)
+        return a, b, (p._replace(**{**FRR_GATES, "min_inliers": 4})
+                      if "FRR" in case else p)
+    if case.startswith("P="):
+        n = int(case[2:].replace(",", ""))
+        idx = (many if n > len(pairs) else pairs)[:n]
+        return trun._gather(ds, idx[:, 0]), trun._gather(ds, idx[:, 1]), p
+    a, b, p = _j_sets(case)
+    move = lambda ms: tr.MinutiaeSet(*(x.to(dev) for x in ms))
+    return move(a), move(b), p
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", J_CARD_CASES)
+def test_kernel_j_equals_the_plain_anchors_on_the_card(d_gallery, card, case):
+    """Kernel J against ``_anchor_promote`` fed the same statistics (kernel
+    I's) on the card: screen tiles of 4,096 pairs of the card tests'
+    gallery at K = 32, 64 and 128 (at 128 also under FRR gates, where the
+    twin's float keys round), 1, 333 and 4,096 of its pairs, and the CPU
+    cases: the weak templates, rigid pairs, the float-key tie, scattered
+    validity with no valid B slot, fewer than 8 minutiae and tied weights,
+    and coordinates 3,600 and 25,000 px from the origin. The promote bits
+    are equal (J_MAX_MISMATCH), one launch a call."""
+    from torch_card import J_MAX_MISMATCH, anchor_args
+    a, b, p = _j_card_inputs(d_gallery, card, case)
+    args = anchor_args(a, b, p)
+    before = build.launches()["anchor"]
+    got = tcm.anchor_pairs_cuda(*args)
+    torch.cuda.synchronize()
+    assert build.launches()["anchor"] == before + 1
+    want = _j_plain(*args)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert int((got != want).sum()) <= J_MAX_MISMATCH, (
+        case, int((got != want).sum()), int(want.sum()))
+    if case == "K=128, float-key tie":
+        assert got.tolist() == [True]
+    if case.startswith("tile") or case == "P=4,096":
+        assert 0 < int(want.sum()) < len(want)
+
+
+@pytest.mark.card
+def test_screen_launches_kernel_j_once_and_its_mask_is_the_plain_routes(
+        card, monkeypatch):
+    """A ``screen_promote_batch`` call on the card launches I, D and J once
+    each; ``shard_blocks_screen`` over a 256-template gallery gives the mask
+    it gives with the plain anchors in J's place."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel import (
+        gallery as tg)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.parallel.mesh import (
+        create_mesh)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        users_gallery)
+    gal = minutiae_from_numpy(users_gallery(128, 2, k=64, seed=3), card)
+    p = tr.MatchParams(**SCREEN_P)
+    a = tg.take_templates(gal, torch.arange(64).repeat_interleave(64))
+    b = tg.take_templates(gal, torch.arange(64, 128).repeat(64))
+    before = build.launches()
+    tcm.screen_promote_batch(a, b, p)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in build.launches().items()
+             if c != before[n]}
+    assert moved == {"sample": 1, "match": 1, "anchor": 1}
+    mesh = create_mesh()
+    bp, mask = tg.shard_blocks_screen(gal, mesh, p)
+    monkeypatch.setattr(tcm, "anchor_pairs_cuda", _j_plain)
+    bp_plain, mask_plain = tg.shard_blocks_screen(gal, mesh, p)
+    np.testing.assert_array_equal(bp, bp_plain)
+    np.testing.assert_array_equal(mask, mask_plain)
+    assert 0 < int(mask.sum()) < mask.size

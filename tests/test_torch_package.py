@@ -590,6 +590,22 @@ def test_kernel_i_is_built_and_declared():
     assert '#include "wrap_angle.cuh"' in src and "wrap_angle(" in src
 
 
+def test_kernel_j_is_built_and_declared():
+    """Kernel J (the screen's recall anchors) is a source of the library
+    with its counter; its C entry point takes the two templates' 8 fields,
+    the weights and the reject, its one output, the two sizes (P and K),
+    the four gates and the stream, and no anchor count (always 8); it takes
+    the anchor angle from the one angle-wrap header."""
+    assert "anchor.cu" in build.SOURCES and "anchor" in build.KERNELS
+    assert build.launches()["anchor"] >= 0
+    sig = build._SIGNATURES["mbfp_anchor_promote"]
+    assert sig.count(build._P) == 13 and len(sig) == 19   # 12 tensors + stream
+    src = (build.CSRC_DIR / "anchor.cu").read_text()
+    assert 'extern "C" int mbfp_anchor_promote(' in src
+    assert '#include "wrap_angle.cuh"' in src and "wrap_angle(" in src
+    assert "float wrap_abs(" not in src
+
+
 def test_kernels_f_and_a_take_scratch_from_the_wrapper():
     """Kernel F's entry point takes the mean and std scratch planes beside
     the max-std words (one filtering pass, two device launches), kernel A's

@@ -184,14 +184,16 @@ def test_promoted_pairs_counter_equals_the_screens_mask():
     assert [s.name for s in _children(spans, top[0])] == [
         "gallery.screen", "gallery.promote_index", "gallery.full_pass"]
     screen_span = _children(spans, top[0])[0]
-    tiles = _children(spans, screen_span)
-    assert [s.name for s in tiles] == ["gallery.screen_tile"] * len(bp)
-    assert sum(s.counts.get("gallery.screen_pairs", 0) for s in tiles) == (
+    calls = _children(spans, screen_span)
+    tiles_a_call = gallery._SCREEN_PAIRS // (64 * 64)
+    assert [s.name for s in calls] == ["gallery.screen_call"] * -(
+        -len(bp) // tiles_a_call)
+    assert sum(s.counts.get("gallery.screen_pairs", 0) for s in calls) == (
         len(bp) * 64 * 64)
     index = _children(spans, top[0])[1]
     assert index.counts == {"gallery.promoted_pairs": promoted}
-    for tile in tiles:
-        assert [s.name for s in _children(spans, tile)] == [
+    for call in calls:
+        assert [s.name for s in _children(spans, call)] == [
             "match.batch", "match.anchor"]
 
 

@@ -54,6 +54,9 @@ F_MAX_MISMATCH = 1e-3         # fraction of mask pixels
 # warp's shuffle tree sums the K inlier scores in another order than the
 # twin's sum.
 D_ATOL = 1e-6
+# Recall anchors (J): promote bits exact. Every rounding of the twin's
+# anchors is reproduced, so no bit may differ.
+J_MAX_MISMATCH = 0            # promote bits that may differ from the twin's
 
 
 @pytest.fixture(scope="session")
@@ -173,3 +176,41 @@ def hypothesis_args(ds, pairs, p, scattered: bool = False) -> tuple:
         for h, i in ((-1, 0), (-2, 1)):
             t[:, h] = spot - _apply_rigid(a.xy[:, i], theta[:, h], 0.0)
     return (a, b, wa, wb, theta, t, cand, possible, p)
+
+
+def anchor_tile(ds, first: int = 0, second: int | None = None, k: int = 64,
+                tile: int = 64) -> tuple:
+    """A screen tile of kernel J: templates ``first`` to ``first + tile`` of
+    ``ds`` (A, repeat-major) against ``second`` to ``second + tile`` (B,
+    tile-minor; by default the same block, a diagonal tile), as the
+    gallery's blocked screen pairs them, with their slots cut to ``k`` or
+    padded to it with invalid slots."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
+        MinutiaeSet)
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.runner import (
+        _gather)
+    idx = np.arange(tile * tile)
+    a = _gather(ds, first + idx // tile)
+    b = _gather(ds, (first if second is None else second) + idx % tile)
+    return tuple(MinutiaeSet(*(resize_slots(x, k) for x in ms))
+                 for ms in (a, b))
+
+
+def resize_slots(x, k: int):
+    """A (P, K, ...) field cut to its first ``k`` slots or padded with
+    zeros (invalid slots) to ``k``."""
+    if x.shape[1] >= k:
+        return x[:, :k].contiguous()
+    pad = torch.zeros((x.shape[0], k - x.shape[1]) + x.shape[2:],
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def anchor_args(a, b, p) -> tuple:
+    """Kernel J's arguments for the pairs (a, b) under MatchParams ``p``:
+    the weights and the early reject through ``sample_pairs``, as the
+    screen hands them over (kernel I's on a card)."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.matching.cuda_match import (
+        sample_pairs)
+    wa, wb, _, _, _, reject, *_ = sample_pairs(a, b, p)
+    return (a, b, wa, wb, reject, p)
