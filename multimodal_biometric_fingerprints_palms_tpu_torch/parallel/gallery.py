@@ -15,7 +15,9 @@ splits it:
 - ``shard_pairs_scores``, ``shard_pairs_screen``: the pair list padded to
   W x per_dev by repeating its last pair and split evenly, the gallery
   replicated; ``shard_blocks_screen`` splits its block pairs the same way;
-- ``identify``, ``identify_batch``: each rank scores its N / W rows;
+- ``identify``, ``identify_batch``: each rank scores its N / W rows
+  (``identify_batch`` optionally through the cascade); ``candidate_list``
+  picks each probe's short list from the gathered scores;
 - ``ShardedGallery``: the same identification as a service whose gallery
   stays on the ranks of a ``parallel.launch.RankGroup`` between calls.
 
@@ -57,10 +59,11 @@ from .mesh import Mesh, gallery_sharding, replicated
 # the sampling's (pairs, H, K) float32 tensors would take 5 GB each at
 # H=300; at 4,096 pairs the full pass keeps the card busy (PERF.md).
 _PAIR_BATCH = 4096
-# Pairs a screen call in ``shard_blocks_screen``, in whole tiles (16 of
-# 64 x 64): one tile a call left the card idle about two thirds of the
-# screen while the host made the call (0.65 ms of host time against
-# 0.31 ms of device time on an H100), and the host's pace set the sweep's.
+# Pairs a screen call in ``shard_blocks_screen`` and ``identify_batch``'s
+# cascade, in whole tiles (16 of 64 x 64) or whole column chunks: one tile
+# a call left the card idle about two thirds of the screen while the host
+# made the call (0.65 ms of host time against 0.31 ms of device time on an
+# H100), and the host's pace set the sweep's.
 _SCREEN_PAIRS = 65536
 
 
@@ -225,6 +228,15 @@ def shard_pairs_screen(gallery: MinutiaeSet, pairs, mesh: Mesh,
     return gather_rows(out, mesh)[:total].cpu().numpy()
 
 
+def screen_params(params: MatchParams, screen_iters: int) -> MatchParams:
+    """The cascade screen's parameters for the full pass ``params``: its
+    hypotheses the first ``screen_iters`` of the full pass's, min_inliers
+    relaxed by 2 (at least 3)."""
+    return params._replace(ransac_iter=screen_iters,
+                           full_iters=params.ransac_iter,
+                           min_inliers=max(3, params.min_inliers - 2))
+
+
 def unique_pairs(n: int) -> np.ndarray:
     """(N*(N-1)/2, 2) upper-triangle index pairs (i < j)."""
     iu = np.triu_indices(n, k=1)
@@ -303,13 +315,10 @@ def all_pairs_unique(gallery: MinutiaeSet, mesh: Mesh,
             s, _ = shard_pairs_scores(gallery, unique_pairs(n), mesh, params,
                                       axis_name, chunk)
         return s.astype(np.float64)
-    screen_p = params._replace(
-        ransac_iter=screen_iters,
-        full_iters=params.ransac_iter,
-        min_inliers=max(3, params.min_inliers - 2))
     block = 64
-    bp, mask = shard_blocks_screen(gallery, mesh, screen_p, axis_name,
-                                   block, anchors)
+    bp, mask = shard_blocks_screen(gallery, mesh,
+                                   screen_params(params, screen_iters),
+                                   axis_name, block, anchors)
     with span("gallery.promote_index"):
         # promoted (block pair, local k) entries back to unique-pair slots:
         # k = i_local * block + j_local
@@ -345,13 +354,23 @@ def identify(probe: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
 def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
                    params: MatchParams = MatchParams(),
                    axis_name: str = "gallery",
-                   chunk: int = 1024) -> torch.Tensor:
+                   chunk: int = 1024,
+                   cascade: bool = False,
+                   screen_iters: int = 32) -> torch.Tensor:
     """Batched 1:N identification: (P, K) probes against the (N, K)
     gallery -> (P, N) scores on every rank's device. Each rank walks its
     N / W rows in column chunks of ``chunk`` templates; a chunk's P x chunk
     pairs, probe-major as in the JAX package, go to the matcher as many
     probes' rows at a time as fit ``_PAIR_BATCH`` pairs (at least one).
-    The ranks' (P, N / W) blocks are gathered in rank order."""
+    The ranks' (P, N / W) blocks are gathered in rank order.
+
+    With ``cascade`` the scores are ``all_pairs_unique``'s two-phase
+    cascade (``_cascade_local``): the ``screen_iters``-hypothesis screen
+    over every probe x row pair, anchors on, then the full pass on the
+    promoted pairs only; every other pair scores 0. Without it, or when
+    the screen would run as many hypotheses as the full pass, every pair
+    gets the full pass. ``candidate_list`` turns the gathered scores into
+    short lists."""
     gallery = shard_gallery(gallery, mesh, axis_name)
     n_local = gallery.valid.shape[0]
     chunk = min(chunk, n_local)
@@ -359,18 +378,76 @@ def identify_batch(probes: MinutiaeSet, gallery: MinutiaeSet, mesh: Mesh,
         raise ValueError(f"gallery rows per device {n_local} not divisible "
                          f"by chunk {chunk}")
     probes = _whole(probes, mesh)
+    if cascade and params.ransac_iter > screen_iters:
+        local = _cascade_local(probes, gallery, params, chunk,
+                               screen_params(params, screen_iters))
+    else:
+        local = _exhaustive_local(probes, gallery, params, chunk)
+    return local if mesh.size == 1 else _gather_columns(local, mesh)
+
+
+def _exhaustive_local(probes: MinutiaeSet, gallery: MinutiaeSet,
+                      params: MatchParams, chunk: int) -> torch.Tensor:
+    """(P, N_local) full-pass scores of every probe against every row."""
+    n_local, p_num = gallery.valid.shape[0], probes.valid.shape[0]
     dev = _device(gallery)
-    p_num = probes.valid.shape[0]
     ia = torch.arange(p_num, device=dev).repeat_interleave(chunk)
     jb = torch.arange(chunk, device=dev).repeat(p_num)
     step = max(1, _PAIR_BATCH // chunk) * chunk
-    cols = [_match_indexed(probes, ia, gallery, jb + c0, params,
-                           step)[0].reshape(p_num, chunk)
-            for c0 in range(0, n_local, chunk)]
-    local = torch.cat(cols, dim=1)
-    if mesh.size == 1:
-        return local
-    return _gather_columns(local, mesh)
+    return torch.cat([_match_indexed(probes, ia, gallery, jb + c0, params,
+                                     step)[0].reshape(p_num, chunk)
+                      for c0 in range(0, n_local, chunk)], dim=1)
+
+
+def _cascade_local(probes: MinutiaeSet, gallery: MinutiaeSet,
+                   params: MatchParams, chunk: int,
+                   screen_p: MatchParams) -> torch.Tensor:
+    """(P, N_local) cascade scores: the screen over whole column chunks,
+    up to ``_SCREEN_PAIRS`` pairs (probe-major; at least one chunk) a
+    ``screen_promote_batch`` call, every call queued before the host
+    reads the promoted pairs' indices (its one read); then the full pass
+    on those pairs alone, ``_PAIR_BATCH`` a call, and 0 elsewhere.
+
+    Spans ``gallery.identify_screen`` (the screen calls, to the promoted
+    indices) and ``gallery.identify_full``; counts ``gallery.screen_pairs``
+    and ``gallery.promoted_pairs``."""
+    n_local, p_num = gallery.valid.shape[0], probes.valid.shape[0]
+    dev = _device(gallery)
+    width = max(1, _SCREEN_PAIRS // (p_num * chunk)) * chunk
+    with span("gallery.identify_screen"):
+        bits = []
+        for c0 in range(0, n_local, width):
+            w = min(width, n_local - c0)
+            bits.append(screen_promote_batch(
+                take_templates(probes, torch.arange(
+                    p_num, device=dev).repeat_interleave(w)),
+                take_templates(gallery, torch.arange(
+                    c0, c0 + w, device=dev).repeat(p_num)),
+                screen_p, True).view(p_num, w))
+        count("gallery.screen_pairs", p_num * n_local)
+        ia, ib = torch.cat(bits, dim=1).nonzero(as_tuple=True)
+        count("gallery.promoted_pairs", ia.shape[0])
+    local = torch.zeros((p_num, n_local), device=dev)
+    if ia.shape[0]:
+        with span("gallery.identify_full"):
+            local[ia, ib] = _match_indexed(probes, ia, gallery, ib, params,
+                                           _PAIR_BATCH)[0]
+    return local
+
+
+@traced("gallery.candidates")
+def candidate_list(scores: torch.Tensor, length: int):
+    """The candidate lists of (P, N) scores, on their device: ``(ids (P,
+    L) int64, scores (P, L))``, the top ``length`` of each row by score
+    descending and the lower row first between equal scores (a stable
+    sort; ``topk`` keeps no such order); id -1 where the score is 0, so
+    padding rows (``pad_gallery``) are never listed."""
+    if length > scores.shape[1]:
+        raise ValueError(f"{length} candidates from a gallery of "
+                         f"{scores.shape[1]} rows")
+    top, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    top, ids = top[:, :length], ids[:, :length]
+    return torch.where(top > 0, ids, -1), top
 
 
 def _gather_columns(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -64,7 +64,8 @@ def _ranks(w: int) -> list:
 
 CALLS = ["all_pairs_scores", "shard_pairs_scores", "shard_pairs_screen",
          "shard_blocks_screen", "all_pairs_unique", "all_pairs_unique cascade",
-         "identify", "identify_batch"]
+         "identify", "identify_batch", "identify_batch cascade",
+         "identify_batch candidates"]
 
 
 @pytest.mark.parametrize("w", [2, 4])

@@ -19,6 +19,11 @@ mesh, where kernel D's plain twin scores. Tolerances, with their reasons:
 The cascade and mask cases use K=16 templates (all 16 minutiae valid): a
 screen tile is 4,096 pairs, and the plain twin's float64 temporaries grow
 with K * K.
+
+``identify_batch``'s cascade and candidate list are held to the
+benchmark's frozen plain reference (``cudabench/reference/candidates.py``,
+plain PyTorch of its own): ids exact, scores within 1e-6; its defaults to
+the full pass of every pair, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,9 +45,12 @@ from multimodal_biometric_fingerprints_palms_tpu.parallel import (
 from multimodal_biometric_fingerprints_palms_tpu_torch.features.minutiae import (
     MinutiaeSet as TSet, minutiae_from_numpy)
 from multimodal_biometric_fingerprints_palms_tpu_torch.matching import (
-    ransac as tr)
+    cuda_match as tcm, ransac as tr)
 from multimodal_biometric_fingerprints_palms_tpu_torch.parallel import (
-    gallery as tg, mesh as tmesh)
+    gallery as tg, launch, mesh as tmesh)
+
+from cudabench.reference import candidates as rc, match as rm
+from torch_card import card  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 
@@ -398,3 +406,231 @@ def test_identify_checks_the_chunk():
     with pytest.raises(ValueError, match="chunk"):
         tg.identify_batch(tg.take_templates(tset, [0, 1]), tset, _cpu(), tp,
                           chunk=5)
+
+
+# --- the cascade search and its candidate list --------------------------------
+
+CAND_PARAMS = dict(ransac_iter=16, min_inliers=3)
+CAND_SCREEN = 2         # the full pass scores impostors this screen drops
+
+
+@functools.cache
+def _cand_case():
+    """6 users x 3 (K=16): the first two impressions of each enrolled (12
+    rows), the third its probe; the reference's sets of the same rows."""
+    d, _ = _gallery(np.random.default_rng(11), 6, 3, k=16)
+    enrolled = np.sort(np.r_[0:18:3, 1:18:3])
+    probes = np.arange(2, 18, 3)
+    t = {f: torch.from_numpy(v) for f, v in d.items()}
+    tset = minutiae_from_numpy(d)
+    return (tg.take_templates(tset, enrolled), tg.take_templates(tset, probes),
+            rm.as_set(t, rows=enrolled), rm.as_set(t, rows=probes))
+
+
+def _ref_scores(gal, probes, cascade):
+    return rc.probe_scores(probes, gal, rm.MatchParams(**CAND_PARAMS),
+                           CAND_SCREEN if cascade else None)
+
+
+@pytest.mark.parametrize("length", [2, 9])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("cascade", [False, True])
+def test_identify_batch_candidates_equal_the_reference(cascade, padded, length):
+    """Dense scores and lists of the cascade (on and off) against the
+    reference over the unpadded gallery; padding rows (12 rows padded to
+    16) score 0 and are never listed; a list longer than a probe's
+    positive scores (2 mates, length 9) ends in -1 with score 0."""
+    gal, probes, ref_gal, ref_probes = _cand_case()
+    if padded:
+        gal = tg.pad_gallery(gal, 8)
+    kw = dict(chunk=8 if padded else 4, cascade=cascade,
+              screen_iters=CAND_SCREEN)
+    p = tr.MatchParams(**CAND_PARAMS)
+    dense = tg.identify_batch(probes, gal, _cpu(), p, **kw)
+    ids, scores = tg.candidate_list(dense, length)
+    ref = _ref_scores(ref_gal, ref_probes, cascade)
+    want_ids, want = rc.top_list(ref, length)
+    assert ids.dtype == torch.int64 and scores.dtype == torch.float32
+    assert ids.shape == scores.shape == (6, length)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_allclose(scores.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(dense.numpy()[:, :12], ref, atol=1e-6, rtol=0)
+    assert dense.shape == (6, 16 if padded else 12)
+    assert not dense[:, 12:].any()
+    assert torch.equal(ids == -1, scores == 0)
+    assert ((ids >= 0) & (ids < 12) | (ids == -1)).all()
+    positive = (ref > 0).sum(axis=1)
+    np.testing.assert_array_equal((ids >= 0).sum(dim=1).numpy(),
+                                  np.minimum(positive, length))
+    # the screen drops impostor pairs the full pass scores
+    off = _ref_scores(ref_gal, ref_probes, False)
+    assert ((off > 0) & (ref == 0)).any() == cascade
+
+
+@pytest.mark.parametrize("copy_to", [1, 9])
+def test_candidates_list_the_lower_row_first_between_equal_scores(copy_to):
+    """Row 3 copied to row ``copy_to``: the two score alike against every
+    probe, and the lower row comes first, as in the reference."""
+    gal, probes, ref_gal, ref_probes = _cand_case()
+    rows = np.arange(12)
+    rows[copy_to] = 3
+    gal = tg.take_templates(gal, rows)
+    ref_gal = rm.MinutiaeSet(*(x[torch.as_tensor(rows)] for x in ref_gal))
+    p = tr.MatchParams(**CAND_PARAMS)
+    for cascade in (False, True):
+        ids, scores = tg.candidate_list(tg.identify_batch(
+            probes, gal, _cpu(), p, chunk=4, cascade=cascade,
+            screen_iters=CAND_SCREEN), 4)
+        want_ids, want = rc.top_list(_ref_scores(ref_gal, ref_probes, cascade), 4)
+        np.testing.assert_array_equal(ids.numpy(), want_ids)
+        np.testing.assert_allclose(scores.numpy(), want, atol=1e-6, rtol=0)
+        row = ids[1].tolist()       # probe 1 is user 1's, rows 2 and 3 its mates
+        lo, hi = sorted((3, copy_to))
+        assert lo in row and hi in row and row.index(lo) < row.index(hi)
+        assert scores[1, row.index(lo)] == scores[1, row.index(hi)] > 0
+
+
+def test_candidate_list_rule_on_chosen_scores():
+    """Ties, zeros and the order, on scores chosen by hand."""
+    s = torch.tensor([[0.0, 0.5, 0.25, 0.5, 0.0, 0.75],
+                      [0.0, 0.0, 0.0, 0.0, 0.0, 0.0]])
+    ids, top = tg.candidate_list(s, 5)
+    assert ids.tolist() == [[5, 1, 3, 2, -1], [-1] * 5]
+    assert top.tolist() == [[0.75, 0.5, 0.5, 0.25, 0.0], [0.0] * 5]
+    want_ids, want = rc.top_list(s.numpy(), 5)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(top.numpy(), want)
+    with pytest.raises(ValueError, match="candidates"):
+        tg.candidate_list(s, 7)
+
+
+@pytest.mark.parametrize("route", ["defaults", "explicit", "screen_as_full",
+                                   "identify", "sharded_gallery"])
+def test_identify_batch_defaults_are_the_full_pass_bit_for_bit(route):
+    """Without the cascade, every probe x row pair through
+    ``match_pairs_batch``: the defaults, the options named, the cascade at
+    as many screen hypotheses as the full pass, ``identify`` a probe at a
+    time and ``ShardedGallery`` on a group of one."""
+    gal, probes, _, _ = _cand_case()
+    gal = tg.pad_gallery(gal, 8)
+    p = tr.MatchParams(**CAND_PARAMS)
+    want = torch.stack([tcm.match_pairs_batch(
+        tg.take_templates(probes, [i] * 16), gal, p).final_score
+        for i in range(6)])
+    if route == "defaults":
+        got = tg.identify_batch(probes, gal, _cpu(), p, chunk=8)
+    elif route == "explicit":
+        got = tg.identify_batch(probes, gal, _cpu(), p, chunk=8, cascade=False,
+                                screen_iters=CAND_SCREEN)
+    elif route == "screen_as_full":
+        got = tg.identify_batch(probes, gal, _cpu(), p, chunk=8, cascade=True,
+                                screen_iters=16)
+    elif route == "identify":
+        got = torch.stack([tg.identify(TSet(*(x[i] for x in probes)), gal,
+                                       _cpu(), p, chunk=8) for i in range(6)])
+    else:
+        with launch.start_ranks(1, device="cpu") as grp:
+            svc = tg.ShardedGallery(grp, p, chunk=8)
+            svc.load(gal)
+            got = svc.identify_batch(probes)
+    assert got.dtype == want.dtype and got.shape == (6, 16)
+    assert torch.equal(got, want)
+
+
+def test_cascade_search_reads_the_promoted_pairs_once(monkeypatch):
+    """Every screen call is made before the promoted pairs' indices are
+    read, whole column chunks up to ``_SCREEN_PAIRS`` a call; the full pass
+    scores the promoted pairs alone; the counters count them."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils import profiling
+    gal, probes, _, _ = _cand_case()
+    events = []
+    screen, full = tg.screen_promote_batch, tg.match_pairs_batch
+
+    def spy_screen(a, b, p, anchors):
+        events.append(("screen", a.valid.shape[0]))
+        return screen(a, b, p, anchors)
+
+    def spy_full(a, b, p):
+        events.append(("full", a.valid.shape[0]))
+        return full(a, b, p)
+
+    monkeypatch.setattr(tg, "screen_promote_batch", spy_screen)
+    monkeypatch.setattr(tg, "match_pairs_batch", spy_full)
+    monkeypatch.setattr(tg, "_SCREEN_PAIRS", 6 * 4 * 2)    # two chunks a call
+    before = profiling.counters("gallery.")
+    dense = tg.identify_batch(probes, gal, _cpu(), tr.MatchParams(**CAND_PARAMS),
+                              chunk=4, cascade=True, screen_iters=CAND_SCREEN)
+    moved = {k: v - before.get(k, 0)
+             for k, v in profiling.counters("gallery.").items()}
+    promoted = int((dense > 0).sum())
+    assert events == [("screen", 48), ("screen", 24), ("full", promoted)]
+    assert moved["gallery.screen_pairs"] == 72
+    assert moved["gallery.promoted_pairs"] == promoted == 12
+
+
+def _plain_twins(monkeypatch):
+    """Every kernel's wrapper replaced by its plain twin, the CPU route, on
+    the card's tensors. The anchors' twin runs 512 pairs at a time (each pair's bit is its
+    own; its float64 (pairs, 8, K, K) temporaries), the others at the
+    call's size, where the sampling's cumulative sums add in kernel I's
+    order."""
+    def sample(a, b, p):
+        wa, wb, *rest = tr._pair_stats(a, b)
+        return (wa, wb, *rest, *tr.sample_hypotheses(a, b, wa, wb, p))
+
+    def anchors(a, b, wa, wb, reject, p):
+        cut = lambda xs, s: [x[s:s + 512] for x in xs]
+        return torch.cat([tr._anchor_promote(
+            tr.MinutiaeSet(*cut(a, s)), tr.MinutiaeSet(*cut(b, s)),
+            *cut((wa, wb, reject), s), p) for s in range(0, len(reject), 512)])
+
+    monkeypatch.setattr(tcm, "sample_pairs_cuda", sample)
+    monkeypatch.setattr(tcm, "hypothesis_scores_cuda", tcm.hypothesis_scores_plain)
+    monkeypatch.setattr(tcm, "finish_match_cuda", tr._finish_match)
+    monkeypatch.setattr(tcm, "anchor_pairs_cuda", anchors)
+
+
+@pytest.mark.card
+def test_cascade_search_on_the_card_equals_the_plain_route(card, monkeypatch):
+    """``identify_batch`` with the cascade and a candidate list on the card
+    (kernels I, D at H=32 and J; then I, D and H at H=300 on the promoted
+    pairs) against the same search through the plain twins on the card:
+    promote bits, scores and lists exact. 16 probes against 256 rows
+    (K=64) in one 4,096-pair screen call, as the all-pairs screen is held
+    in ``tests/test_torch_matching.py``."""
+    from multimodal_biometric_fingerprints_palms_tpu_torch.utils.synthetic import (
+        users_gallery)
+    tm = minutiae_from_numpy(users_gallery(128, 3, k=64, seed=25), card)
+    gal = tg.take_templates(tm, np.sort(np.r_[0:384:3, 1:384:3]))
+    probes = tg.take_templates(tm, np.arange(2, 48, 3))
+    mesh = tmesh.create_mesh()
+    p = tr.MatchParams()
+    bits = {"card": [], "plain": []}
+    screen = tg.screen_promote_batch
+
+    def run(route):
+        def spy(a, b, sp, anc):
+            out = screen(a, b, sp, anc)
+            bits[route].append(out.cpu())
+            return out
+        monkeypatch.setattr(tg, "screen_promote_batch", spy)
+        dense = tg.identify_batch(probes, gal, mesh, p, chunk=128, cascade=True,
+                                  screen_iters=32)
+        ids, top = tg.candidate_list(dense, 20)
+        return dense.cpu(), ids.cpu(), top.cpu()
+
+    got = run("card")
+    _plain_twins(monkeypatch)
+    want = run("plain")
+    assert [b.shape[0] for b in bits["card"]] == [4096]
+    for g, w in zip(bits["card"], bits["plain"]):
+        assert torch.equal(g, w)
+    promoted = bits["card"][0]
+    assert 0 < int(promoted.sum()) < promoted.numel()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    dense, ids = got[0], got[1]
+    assert torch.equal(dense.view(16, 256) > 0,
+                       (dense > 0) & promoted.view(16, 256))
+    mates = torch.arange(16)[:, None] * 2 + torch.tensor([0, 1])
+    assert (ids[:, :2].sort(dim=1).values == mates).float().mean() >= 0.9

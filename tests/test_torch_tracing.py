@@ -197,6 +197,34 @@ def test_promoted_pairs_counter_equals_the_screens_mask():
             "match.batch", "match.anchor"]
 
 
+def test_cascade_search_records_its_screen_full_pass_and_list():
+    """``identify_batch`` with the cascade: ``gallery.identify_screen``
+    (with the screened and promoted pairs' counts) then
+    ``gallery.identify_full`` under ``gallery.identify``; the list's
+    ``gallery.candidates`` beside it."""
+    gal = _gallery(4, 3)
+    n = gal.valid.shape[0]
+    probes = gallery.take_templates(gal, [0, 4, 8])     # each its own mate
+    mesh = create_mesh(device="cpu")
+
+    def search():
+        scores = gallery.identify_batch(probes, gal, mesh, PARAMS, chunk=n,
+                                        cascade=True, screen_iters=8)
+        return gallery.candidate_list(scores, 5), scores
+
+    ((ids, _), scores), spans, _ = _record(search)
+    promoted = int((scores > 0).sum())
+    assert promoted >= 3 and (ids[:, 0] == torch.tensor([0, 4, 8])).all()
+    top = [s for s in spans if s.parent == -1]
+    assert [s.name for s in top] == ["gallery.identify", "gallery.candidates"]
+    screen, full = _children(spans, top[0])
+    assert (screen.name, full.name) == ("gallery.identify_screen",
+                                        "gallery.identify_full")
+    assert screen.counts["gallery.screen_pairs"] == 3 * n
+    assert screen.counts["gallery.promoted_pairs"] >= promoted
+    assert {s.name for s in _children(spans, full)} == {"match.batch"}
+
+
 def test_enrolment_records_each_stage_under_its_layer():
     x = torch.from_numpy(make_batch(1, 64, 64))
 

@@ -63,6 +63,13 @@ def gallery_calls(mesh) -> dict:
                                 tg.shard_gallery(g16, mesh), mesh, p,
                                 chunk=4),
         "identify_batch": tg.identify_batch(probes, g16, mesh, p, chunk=4),
+        "identify_batch cascade": tg.identify_batch(
+            probes, g16, mesh, p, chunk=4, cascade=True, screen_iters=8),
+        # the list is chosen after the ranks' blocks are gathered
+        "identify_batch candidates": np.concatenate([
+            x.numpy().astype(np.float64) for x in tg.candidate_list(
+                tg.identify_batch(probes, g16, mesh, p, chunk=4, cascade=True,
+                                  screen_iters=8), 6)]),
     }
     return {k: v.numpy() if isinstance(v, torch.Tensor) else v
             for k, v in out.items()}
